@@ -1,0 +1,221 @@
+"""Joint-format registry and keypoint-format conversion (numpy).
+
+Counterpart of gaitlab/body/joints.py: the same name tables, so that
+`convert_kps(x, src, dst)` gathers by joint name and zero-fills joints the
+source lacks, as the reference's kp_utils.convert_kps does. The demo uses
+it for `--joint_type` other than spin. The bone lists that gaitlab keeps
+for rendering are not ported yet.
+
+Deployed formats: 'spin' (49), 'spin2' (29), 'kinectv2' (25); the rest are
+kept for dataset interchange.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# ---------------------------------------------------------------------------
+# joint-name tables (kp_utils.py:44-931)
+# ---------------------------------------------------------------------------
+
+JOINT_FORMATS: dict[str, list[str]] = {}
+
+
+def register_format(name: str, joints: list[str]):
+    JOINT_FORMATS[name] = joints
+
+
+register_format("spin", [
+    "OP Nose", "OP Neck", "OP RShoulder", "OP RElbow", "OP RWrist",
+    "OP LShoulder", "OP LElbow", "OP LWrist", "OP MidHip", "rhip (SMPL)",
+    "OP RKnee", "OP RAnkle", "lhip (SMPL)", "OP LKnee", "OP LAnkle",
+    "reye", "leye", "rear", "lear", "OP LBigToe", "OP LSmallToe",
+    "OP LHeel", "OP RBigToe", "OP RSmallToe", "OP RHeel",
+    "rankle", "rknee", "rhip", "lhip", "lknee", "lankle",
+    "rwrist", "relbow", "rshoulder", "lshoulder", "lelbow", "lwrist",
+    "neck", "headtop", "hip", "thorax", "Spine (H36M)", "Jaw (H36M)",
+    "Head (H36M)", "nose", "leftThumb", "rightThumb", "leftFoot",
+    "rightFoot",
+])
+
+register_format("spin2", [
+    "hip", "lhip (SMPL)", "rhip (SMPL)", "spine (SMPL)", "lknee", "rknee",
+    "Spine (H36M)", "lankle", "rankle", "spine2", "leftFoot", "rightFoot",
+    "neck", "lcollar", "rcollar", "Head (H36M)", "lshoulder", "rshoulder",
+    "lelbow", "relbow", "lwrist", "rwrist", "leftHand", "rightHand",
+    "leftThumb", "leftHandTip", "rightThumb", "rightHandTip", "thorax",
+])
+
+register_format("kinectv2", [
+    "hip", "Spine (H36M)", "neck", "Head (H36M)", "lshoulder", "lelbow",
+    "lwrist", "leftHand", "rshoulder", "relbow", "rwrist", "rightHand",
+    "lhip (SMPL)", "lknee", "lankle", "leftFoot", "rhip (SMPL)", "rknee",
+    "rankle", "rightFoot", "thorax", "leftHandTip", "leftThumb",
+    "rightHandTip", "rightThumb",
+])
+
+register_format("smpl", [
+    "hips", "leftUpLeg", "rightUpLeg", "spine", "leftLeg", "rightLeg",
+    "spine1", "leftFoot", "rightFoot", "spine2", "leftToeBase",
+    "rightToeBase", "neck", "leftShoulder", "rightShoulder", "head",
+    "leftArm", "rightArm", "leftForeArm", "rightForeArm", "leftHand",
+    "rightHand", "leftHandIndex1", "rightHandIndex1",
+])
+
+register_format("smpl2", [
+    "hip", "lhip (SMPL)", "rhip (SMPL)", "spine (SMPL)", "lknee", "rknee",
+    "Spine (H36M)", "lankle", "rankle", "spine2", "leftFoot", "rightFoot",
+    "neck", "lcollar", "rcollar", "Jaw (H36M)", "lshoulder", "rshoulder",
+    "lelbow", "relbow", "lwrist", "rwrist", "leftHand", "rightHand",
+])
+
+register_format("h36m", [
+    "hip", "rhip (H36M)", "rknee", "rankle", "lhip (H36M)", "lknee",
+    "lankle", "Spine (H36M)", "Jaw (H36M)", "Head (H36M)", "headtop",
+    "lshoulder", "lelbow", "lwrist", "rshoulder", "relbow", "rwrist",
+])
+
+register_format("shcommon", [
+    "hip", "rhip", "rknee", "rankle", "lhip", "lknee", "lankle",
+    "Spine (H36M)", "neck", "Jaw (H36M)", "lshoulder", "lelbow", "lwrist",
+    "rshoulder", "relbow", "rwrist",
+])
+
+register_format("common", [
+    "rankle", "rknee", "rhip", "lhip", "lknee", "lankle", "rwrist",
+    "relbow", "rshoulder", "lshoulder", "lelbow", "lwrist", "neck",
+    "headtop",
+])
+
+register_format("coco", [
+    "nose", "leye", "reye", "lear", "rear", "lshoulder", "rshoulder",
+    "lelbow", "relbow", "lwrist", "rwrist", "lhip", "rhip", "lknee",
+    "rknee", "lankle", "rankle",
+])
+
+register_format("mpii", [
+    "rankle", "rknee", "rhip", "lhip", "lknee", "lankle", "hip", "thorax",
+    "neck", "headtop", "rwrist", "relbow", "rshoulder", "lshoulder",
+    "lelbow", "lwrist",
+])
+
+register_format("mpii3d", [
+    "spine3", "spine4", "spine2", "Spine (H36M)", "hip", "neck",
+    "Head (H36M)", "headtop", "left_clavicle", "lshoulder", "lelbow",
+    "lwrist", "left_hand", "right_clavicle", "rshoulder", "relbow",
+    "rwrist", "right_hand", "lhip", "lknee", "lankle", "left_foot",
+    "left_toe", "rhip", "rknee", "rankle", "right_foot", "right_toe",
+])
+
+register_format("mpii3d_test", [
+    "headtop", "neck", "rshoulder", "relbow", "rwrist", "lshoulder",
+    "lelbow", "lwrist", "rhip", "rknee", "rankle", "lhip", "lknee",
+    "lankle", "hip", "Spine (H36M)", "Head (H36M)",
+])
+
+register_format("insta", [
+    "OP RHeel", "OP RKnee", "rhip (SMPL)", "lhip (SMPL)", "OP LKnee",
+    "OP LHeel", "OP RWrist", "OP RElbow", "OP RShoulder", "OP LShoulder",
+    "OP LElbow", "OP LWrist", "OP Neck", "headtop", "OP Nose", "reye",
+    "leye", "lear", "rear", "OP LBigToe", "OP RBigToe", "OP LSmallToe",
+    "OP RSmallToe", "OP LAnkle", "OP RAnkle",
+])
+
+register_format("OP21a", [
+    "OP Nose", "OP Neck", "OP RShoulder", "OP RElbow", "OP RWrist",
+    "OP LShoulder", "OP LElbow", "OP LWrist", "OP MidHip", "OP RHip",
+    "OP RKnee", "OP RAnkle", "OP LHip", "OP LKnee", "OP LAnkle",
+    "OP REye", "OP LEye", "OP REar", "OP LEar", "Jaw (H36M)", "headtop",
+])  # kp_utils.py:861-906
+
+register_format("aich", [
+    "rshoulder", "relbow", "rwrist", "lshoulder", "lelbow", "lwrist",
+    "rhip", "rknee", "rankle", "lhip", "lknee", "lankle", "headtop", "neck",
+])  # kp_utils.py:576-614
+
+register_format("staf", [
+    "OP Nose", "OP Neck", "OP RShoulder", "OP RElbow", "OP RWrist",
+    "OP LShoulder", "OP LElbow", "OP LWrist", "OP MidHip", "OP RHip",
+    "OP RKnee", "OP RAnkle", "OP LHip", "OP LKnee", "OP LAnkle",
+    "OP REye", "OP LEye", "OP REar", "OP LEar", "Neck (LSP)",
+    "Top of Head (LSP)",
+])
+
+register_format("posetrack", [
+    "nose", "neck", "headtop", "lear", "rear", "lshoulder", "rshoulder",
+    "lelbow", "relbow", "lwrist", "rwrist", "lhip", "rhip", "lknee",
+    "rknee", "lankle", "rankle",
+])
+
+# Raw PoseTrack annotation names (kp_utils.py:396-415). Unlike "posetrack"
+# above (canonical interchange names), this is the dataset's own naming —
+# kept for annotation-file parity; convert by position, not by name.
+register_format("posetrack_original", [
+    "nose", "head_bottom", "head_top", "left_ear", "right_ear",
+    "left_shoulder", "right_shoulder", "left_elbow", "right_elbow",
+    "left_wrist", "right_wrist", "left_hip", "right_hip", "left_knee",
+    "right_knee", "left_ankle", "right_ankle",
+])
+
+register_format("pennaction", [
+    "headtop", "lshoulder", "rshoulder", "lelbow", "relbow", "lwrist",
+    "rwrist", "lhip", "rhip", "lknee", "rknee", "lankle", "rankle",
+])
+
+register_format("smplcoco", [
+    "rankle", "rknee", "rhip", "lhip", "lknee", "lankle", "rwrist",
+    "relbow", "rshoulder", "lshoulder", "lelbow", "lwrist", "neck",
+    "headtop", "nose", "leye", "reye", "lear", "rear",
+])
+
+register_format("3dpw", [
+    "nose", "thorax", "rshoulder", "relbow", "rwrist", "lshoulder",
+    "lelbow", "lwrist", "rhip", "rknee", "rankle", "lhip", "lknee",
+    "lankle",
+])
+
+register_format("cmu21", [
+    "hip", "rhip", "rknee", "rankle", "rightFoot", "lhip", "lknee",
+    "lankle", "leftFoot", "thorax", "Spine (H36M)", "neck", "Jaw (H36M)",
+    "rshoulder", "relbow", "rwrist", "rightHand", "lshoulder", "lelbow",
+    "lwrist", "leftHand",
+])
+
+register_format("h36m32", [
+    "hip", "rhip", "rknee", "rankle", "rightFoot", "rightToe", "lhip",
+    "lknee", "lankle", "leftFoot", "leftToe", "spine", "Spine (H36M)",
+    "neck", "Jaw (H36M)", "Head (H36M)", "headtop (H36M)", "lshoulder",
+    "lelbow", "lwrist", "leftHand", "leftThumb", "leftHandTip",
+    "leftHand2", "necklow2", "rshoulder", "relbow", "rwrist", "rightHand",
+    "rightThumb", "rightHandTip", "rightHand2",
+])
+
+# ---------------------------------------------------------------------------
+# conversion
+# ---------------------------------------------------------------------------
+
+def get_joint_names(fmt: str) -> list[str]:
+    return JOINT_FORMATS[fmt]
+
+
+def conversion_indices(src: str, dst: str) -> tuple[np.ndarray, np.ndarray]:
+    """(gather_idx, valid_mask): dst[i] = src[gather_idx[i]] where valid."""
+    src_names = JOINT_FORMATS[src]
+    dst_names = JOINT_FORMATS[dst]
+    idx = np.zeros(len(dst_names), dtype=np.int64)
+    valid = np.zeros(len(dst_names), dtype=bool)
+    for i, n in enumerate(dst_names):
+        if n in src_names:
+            idx[i] = src_names.index(n)
+            valid[i] = True
+    return idx, valid
+
+
+def convert_kps(joints: np.ndarray, src: str, dst: str) -> np.ndarray:
+    """(N, J_src, C) -> (N, J_dst, 3); missing joints zero-filled (the
+    reference's 3-channel zero-padded output)."""
+    idx, valid = conversion_indices(src, dst)
+    out = np.zeros((joints.shape[0], len(idx), 3), dtype=joints.dtype)
+    out[:, :, :joints.shape[-1]] = np.where(valid[None, :, None],
+                                            joints[:, idx], 0.0)
+    return out
