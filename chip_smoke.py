@@ -6,8 +6,9 @@
 Phases, each of which exits non-zero on failure:
   1. build   compile the CUDA kernels from gaitlab_torch/csrc (nvcc, sm_90a)
   2. kernels hold each kernel against its plain PyTorch version on the card
-             at main-path shapes (B = 128 and a ragged B = 37); time kernel,
-             plain version and one library call with CUDA events
+             at main-path shapes (B = 1, 37, 128 and 450: ragged, one wave,
+             the largest bucket); time kernel, plain version and one library
+             call with CUDA events at B = 128
   3. path    run `gaitlab_torch.cli.demo --tracking_path` at full width
              (HRNet-W32 + PARE + synthetic SMPL, 224 crops) on a synthetic
              clip with two tracks (150 and 60 frames: two buckets, tail
@@ -39,14 +40,17 @@ import time
 
 H100_BYTES_PER_S = 3.35e12   # HBM3
 H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores
+H100_TF32_FLOP_PER_S = 495e12  # TF32 tensor cores, dense
 SEED = 0
 CLIP_W, CLIP_H, CLIP_FRAMES = 320, 240, 160
 TRACKS = ((0, 150), (100, 160))  # [start, end) frames of the two tracks
 CALIB_FRAMES = 64
 LOOP_BATCH = 128
+CHECK_BATCHES = (1, 37, 450, LOOP_BATCH)  # the last one is timed
 CPU_FRAMES = 4
 B1_ATOL = 1e-4  # sums of 3136 fp32 products, taken in another order
 B2_ATOL = 1e-5  # sums of 217 fp32 products, taken in another order
+SLEEP_CYCLES = 2_000_000  # about 1 ms of the card's clock
 CPU_ATOL_M = 1e-3  # kp_3d / verts, metres: ~100 fp32 convs, two libraries
 
 
@@ -61,7 +65,9 @@ def card_line() -> str:
 
 
 def time_ms(fn, flush, reps: int = 20, warm: int = 3) -> float:
-    """Median device time of one call, CUDA events, L2 flushed before each."""
+    """Median device time of one call, CUDA events, L2 flushed before each.
+    The card sleeps after the flush, so the host has enqueued the call
+    before the start event is reached and its Python time stays out."""
     import torch
 
     for _ in range(warm):
@@ -69,6 +75,7 @@ def time_ms(fn, flush, reps: int = 20, warm: int = 3) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -79,9 +86,10 @@ def time_ms(fn, flush, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flop_per_s: float = H100_FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -97,7 +105,7 @@ def check_blendshapes(gen, flush) -> dict:
     V, S, P = 6890, 10, 207
     R = V * 3
     err = 0.0
-    for b in (LOOP_BATCH, 37):
+    for b in CHECK_BATCHES:
         vt = torch.randn(V, 3, device="cuda", generator=gen) * 0.3
         sh = torch.randn(V, 3, S, device="cuda", generator=gen) * 0.01
         po = torch.randn(P, R, device="cuda", generator=gen) * 0.001
@@ -116,10 +124,7 @@ def check_blendshapes(gen, flush) -> dict:
             raise AssertionError(f"blendshapes disagrees with its plain "
                                  f"version: {e} > {B2_ATOL}")
         err = max(err, e)
-    # timed at B = 128 (the last b above is 37: redraw at 128)
-    be = torch.randn(LOOP_BATCH, S, device="cuda", generator=gen)
-    pf = torch.randn(LOOP_BATCH, P, device="cuda", generator=gen) * 0.5
-    args = (vt, sh, po, be, pf)
+    # timed at B = 128, the last of CHECK_BATCHES
     dirs = torch.cat([sh.reshape(R, S).T, po])     # (S+P, R)
     coef = torch.cat([be, pf], dim=1)              # (B, S+P)
     vt_row = vt.reshape(1, R)
@@ -128,7 +133,12 @@ def check_blendshapes(gen, flush) -> dict:
         raise AssertionError("the library yardstick computes another function")
     nbytes = 4 * (R + R * S + P * R + LOOP_BATCH * (S + P) + LOOP_BATCH * R)
     flops = 2 * LOOP_BATCH * R * (S + P) + LOOP_BATCH * R
-    b_ms, b_by = bound(nbytes, flops)
+    # the kernel's route: 3xTF32, three tensor-core products per product
+    b_ms, b_by = bound(nbytes, 3 * flops, H100_TF32_FLOP_PER_S)
+    fp32_ms, fp32_by = bound(nbytes, flops)
+    log(f"[kernels] blendshapes bound at B={LOOP_BATCH}: 3xTF32 route "
+        f"{b_ms:.4f} ms ({b_by}); in FP32 FFMA it would be {fp32_ms:.4f} ms "
+        f"({fp32_by})")
     return dict(
         name="blendshapes", route="cuda",
         source="gaitlab_torch/csrc/blendshapes.cu",
@@ -145,12 +155,12 @@ def check_keypoint_attention(gen, flush) -> dict:
     import torch.nn.functional as F
 
     from gaitlab_torch.ops.keypoint_attention import (
-        keypoint_attention_fused, keypoint_attention_plain)
+        keypoint_attention_fused, keypoint_attention_plain, launch_plan)
 
     H = W = 56
     C1, C2, J = 128, 64, 24
     err = 0.0
-    for b in (37, LOOP_BATCH):
+    for b in CHECK_BATCHES:
         # the head's layout: NCHW tensors passed as NHWC views, background
         # channel of the heatmaps sliced off
         f = torch.randn(b, C1, H, W, device="cuda", generator=gen).relu()
@@ -166,9 +176,13 @@ def check_keypoint_attention(gen, flush) -> dict:
             return max((x - y).abs().max().item() for x, y in zip(xs, ys))
 
         e = max_err(got, ref)
+        plan = launch_plan(b, H * W, C1 + C2, torch.cuda.get_device_properties(
+            0).multi_processor_count)
         log(f"[kernels] keypoint_attention B={b}: max_abs_err={e:.3e} "
             f"(tolerance {B1_ATOL:g}); against float64: kernel "
-            f"{max_err(got, ref64):.3e}, plain {max_err(ref, ref64):.3e}")
+            f"{max_err(got, ref64):.3e}, plain {max_err(ref, ref64):.3e}; "
+            f"{plan.n_split} splits of {plan.split_len} positions, "
+            f"{1 + (plan.n_split > 1)} device launches per call")
         if not e <= B1_ATOL:
             raise AssertionError(f"keypoint_attention disagrees with its "
                                  f"plain version: {e} > {B1_ATOL}")
@@ -380,12 +394,15 @@ def profile_loop(model, crops) -> None:
     log(f"[profile] batch {LOOP_BATCH}: device busy {total:.2f} ms of a "
         f"{wall_ms:.2f} ms window ({100 * total / wall_ms:.1f}%); "
         f"{len(kernels)} kernel names")
+    # B1 is attention_split_kernel and, with several splits,
+    # attention_merge_kernel; B2 is blendshapes_kernel
     groups = {"keypoint_attention (B1)": "attention_",
               "blendshapes (B2)": "blendshapes_kernel"}
     for label, key in groups.items():
-        ms = sum(e.self_device_time_total for e in kernels
-                 if key in e.key) / 1e3
-        log(f"[profile]   {label}: {ms:.3f} ms ({100 * ms / total:.2f}%)")
+        group = [e for e in kernels if key in e.key]
+        ms = sum(e.self_device_time_total for e in group) / 1e3
+        log(f"[profile]   {label}: {ms:.3f} ms ({100 * ms / total:.2f}%) in "
+            f"{sum(e.count for e in group)} device launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         ms = e.self_device_time_total / 1e3
         log(f"[profile]   {ms:8.3f} ms {100 * ms / total:5.1f}% x{e.count:<4d}"

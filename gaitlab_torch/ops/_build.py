@@ -27,11 +27,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # c_void_p, so ctypes never cuts them to 32 bits)
 SIGNATURES = {
     "blendshapes": ("gaitlab_blendshapes",
-                    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+                    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _P)),
     "keypoint_attention": ("gaitlab_keypoint_attention",
                            (_P, _L, _L, _L, _I, _P, _L, _L, _L, _I,
                             _P, _L, _L, _L, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _P)),
+                            _I, _I, _I, _I, _I, _I, _I, _P)),
 }
 
 _libs: dict = {}

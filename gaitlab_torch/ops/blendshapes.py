@@ -1,16 +1,57 @@
 """Fused SMPL blendshapes: v_template + shapedirs.beta + posedirs.pose.
 
 The CUDA kernel (csrc/blendshapes.cu) replaces the Pallas TPU kernel
-gaitlab/ops/lbs_pallas.py::blendshapes. On the card it is bound by its
-FP32 multiply-adds (about 17 us at B = 128 on an H100); the source note
-says how the design meets that. CPU tensors take the plain version.
+gaitlab/ops/lbs_pallas.py::blendshapes. It multiplies on the tensor cores
+in 3xTF32 (each factor split into two TF32 parts, three products summed in
+FP32), which keeps float32 accuracy; on an H100 it is then bound by its
+28 MB of traffic (about 8.4 us at B = 128). The source note says how.
+`launch_plan` sizes its grid and shared memory. CPU tensors take the plain
+version.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from gaitlab_torch.ops import _build
+
+# the tiles of csrc/blendshapes.cu
+ROW_TILE = 160     # kRowTile: vertex rows per block
+BATCH_TILE = 128   # kBatchTile: batch columns per block
+CHUNK = 16         # kChunk: rows of K per pipeline stage
+STAGES = 4         # kStages
+DIR_STRIDE = ROW_TILE + 8  # kDirStride: padded dirs rows in a stage
+OUT_STRIDE = ROW_TILE + 8  # kOutStride: the output tile staged at the end
+MAX_SMEM = 227 * 1024  # dynamic shared memory a block may have on Hopper
+
+
+class BlendshapesPlan(NamedTuple):
+    grid: tuple      # (row tiles, batch tiles)
+    smem: int        # dynamic shared memory per block, bytes
+    vec: int         # floats per cp.async copy of a posedirs row
+
+
+def launch_plan(n_batch: int, rows: int, n_shape: int, n_pose: int,
+                align: int = 16) -> BlendshapesPlan:
+    """Grid, shared memory and copy width of the kernel for `rows` = V*3
+    rows, where `align` is the byte alignment that posedirs and the output
+    share. Shared memory holds the cp.async ring of dirs (STAGES x CHUNK
+    rows of DIR_STRIDE floats) and the block's BATCH_TILE rows of betas and
+    of pose features, each rounded up to whole 16-byte groups; at the end
+    the same memory stages the block's output tile."""
+    def r4(n):
+        return -(-n // 4) * 4
+
+    smem = 4 * max(STAGES * CHUNK * DIR_STRIDE + r4(BATCH_TILE * n_shape)
+                   + r4(BATCH_TILE * n_pose), BATCH_TILE * OUT_STRIDE)
+    if smem > MAX_SMEM:
+        raise ValueError(f"blendshapes: {n_shape} + {n_pose} coefficients "
+                         f"need {smem} bytes of shared memory per block")
+    vec = next(v for v in (4, 2, 1) if rows % v == 0 and align % (4 * v) == 0)
+    return BlendshapesPlan((-(-rows // ROW_TILE), -(-n_batch // BATCH_TILE)),
+                           smem, vec)
 
 
 def blendshapes_plain(v_template: torch.Tensor, shapedirs: torch.Tensor,
@@ -54,12 +95,15 @@ def blendshapes(v_template: torch.Tensor, shapedirs: torch.Tensor,
     out = torch.empty((b, v, 3), device=dev, dtype=torch.float32)
     if b == 0:
         return out
+    ptrs = posedirs.data_ptr() | out.data_ptr()
+    plan = launch_plan(b, v * 3, s, p, align=ptrs & -ptrs)
     lib = _build.library("blendshapes")
     with torch.cuda.device(dev):
         code = lib.gaitlab_blendshapes(
             v_template.data_ptr(), shapedirs.data_ptr(), posedirs.data_ptr(),
             betas.data_ptr(), pose_feature.data_ptr(), out.data_ptr(),
-            v * 3, b, s, p, torch.cuda.current_stream(dev).cuda_stream)
+            v * 3, b, s, p, *plan.grid, plan.smem, plan.vec,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "blendshapes")
     blendshapes.launches += 1
     return out

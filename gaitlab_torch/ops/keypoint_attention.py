@@ -4,9 +4,10 @@ The CUDA kernel (csrc/keypoint_attention.cu) replaces the Pallas TPU
 kernel gaitlab/ops/attention_pallas.py::keypoint_attention_fused. On the
 card it is bound by the bytes of logits and features it must read (about
 0.1 ms at B = 128 on an H100); the source note says how the design meets
-that: the wrapper splits each frame's positions over several blocks and
-hands the kernel its scratch (softmax statistics and partial sums). CPU
-tensors take the plain version.
+that: each frame's positions are split over blocks that keep a running
+softmax and write partials, which a second launch merges. `launch_plan`
+sizes the split; the wrapper hands the kernel its scratch. CPU tensors take
+the plain version.
 
 The public signature is gaitlab's NHWC one. The kernel reads through
 strides, so the head passes its NCHW tensors as permuted views and no copy
@@ -15,14 +16,60 @@ is made.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from gaitlab_torch.nn.layers import keypoint_attention
 from gaitlab_torch.ops import _build
 
-KERNEL_PARTS = 24  # kJ in csrc/keypoint_attention.cu
-KERNEL_TILE = 32   # kTile: the positions of a split are a multiple of it
-BLOCKS_PER_SM = 8  # pooling blocks in flight per SM that the split aims at
+# the tiles of csrc/keypoint_attention.cu
+KERNEL_PARTS = 24      # kJ
+KERNEL_TILE = 32       # kTile: positions per stage; splits are multiples
+KERNEL_STAGES = 2      # kStages of the cp.async ring
+KERNEL_CHANNELS = 192  # kChanTile: channels per block
+KERNEL_BLOCKS = 4      # kMinBlocks: blocks per SM its registers allow
+MAX_SPLITS = 16
+# shared memory of an H100 SM, and what the card keeps back per block
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED = 1024
+MAX_SMEM = 227 * 1024  # dynamic shared memory a block may have
+
+
+class AttentionPlan(NamedTuple):
+    n_split: int     # position splits per frame
+    split_len: int   # positions per split, a multiple of KERNEL_TILE
+    n_chunk: int     # channel chunks of KERNEL_CHANNELS
+    smem: int        # dynamic shared memory per block, bytes
+    blocks_per_sm: int
+
+
+def launch_plan(n_batch: int, hw: int, c_all: int, sms: int) -> AttentionPlan:
+    """How the kernel splits `hw` positions of each of `n_batch` frames
+    over blocks on a card with `sms` SMs.
+
+    Registers and shared memory allow `blocks_per_sm` blocks on each SM.
+    Among up to MAX_SPLITS splits the plan takes the one whose blocks
+    finish soonest in whole waves: waves times the tiles of one split,
+    plus one tile's worth for writing partials when there are several
+    splits (ties go to fewer splits, which write fewer partials)."""
+    smem = KERNEL_STAGES * (KERNEL_CHANNELS + KERNEL_PARTS) * KERNEL_TILE * 4
+    blocks_per_sm = min(KERNEL_BLOCKS,
+                        SMEM_PER_SM // (smem + SMEM_RESERVED))
+    slots = blocks_per_sm * sms
+    tiles = -(-hw // KERNEL_TILE)
+    n_chunk = -(-c_all // KERNEL_CHANNELS)
+    best = None
+    for n in range(1, min(tiles, MAX_SPLITS) + 1):
+        per_split = -(-tiles // n)
+        n_real = -(-tiles // per_split)  # no empty split
+        waves = -(-n_batch * n_real * n_chunk // slots)
+        cost = waves * (per_split + (n_real > 1))
+        if best is None or cost < best[0]:
+            best = (cost, n_real, per_split)
+    _, n_split, per_split = best
+    return AttentionPlan(n_split, per_split * KERNEL_TILE, n_chunk, smem,
+                         blocks_per_sm)
 
 
 def keypoint_attention_plain(features: torch.Tensor, cam_feats: torch.Tensor,
@@ -78,15 +125,19 @@ def keypoint_attention_fused(features: torch.Tensor, cam_feats: torch.Tensor,
     out2 = torch.empty((b, j, c2), device=dev, dtype=torch.float32)
     if b == 0:
         return out1, out2
-    # split each frame's positions over enough blocks to fill the card
     hw = h * w
-    tiles = -(-hw // KERNEL_TILE)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split = max(1, min(tiles, -(-BLOCKS_PER_SM * sms // b)))
-    split_len = -(-tiles // n_split) * KERNEL_TILE
-    n_split = -(-hw // split_len)
-    stats = torch.empty((b, j, 2), device=dev, dtype=torch.float32)
-    partial = torch.empty((n_split, b, j, c1 + c2), device=dev,
+    plan = launch_plan(b, hw, c1 + c2, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    # 16-byte copies where every position stride is 1 and every other
+    # stride and pointer is 16-byte aligned (the head's NCHW views)
+    width = 4 if all(
+        st[1] == 1 and st[0] % 4 == 0 and st[2] % 4 == 0
+        and a.data_ptr() % 16 == 0 for a, st in zip(args, strides)) else 1
+    ms = acc = None
+    if plan.n_split > 1:
+        ms = torch.empty((plan.n_split, b, j, 2), device=dev,
+                         dtype=torch.float32)
+        acc = torch.empty((plan.n_split, b, j, c1 + c2), device=dev,
                           dtype=torch.float32)
     lib = _build.library("keypoint_attention")
     with torch.cuda.device(dev):
@@ -94,8 +145,10 @@ def keypoint_attention_fused(features: torch.Tensor, cam_feats: torch.Tensor,
             features.data_ptr(), *strides[0], c1,
             cam_feats.data_ptr(), *strides[1], c2,
             heatmaps.data_ptr(), *strides[2],
-            out1.data_ptr(), out2.data_ptr(), stats.data_ptr(),
-            partial.data_ptr(), b, hw, n_split, split_len,
+            out1.data_ptr(), out2.data_ptr(),
+            None if ms is None else ms.data_ptr(),
+            None if acc is None else acc.data_ptr(), b, hw, plan.n_split,
+            plan.split_len, plan.n_chunk, width, plan.smem,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "keypoint_attention")
     keypoint_attention_fused.launches += 1
