@@ -1,18 +1,20 @@
-"""Flag-compatible demo CLI, `--tracking_path` path: precomputed tracklets
--> crops -> GRNet + SMPL on the card -> pkl.
+"""Flag-compatible demo CLI: a video -> tracked people -> crops -> GRNet +
+SMPL on the card -> optional one-euro smoothing -> pkl.
 
 Counterpart of gaitlab/cli/demo.py with the same parser and the same pkl
 schema per person (pred_cam, orig_cam, verts, pose, betas, joints3d,
-joints2d, bboxes, frame_ids) and file naming. Runs on CUDA unless
---cpu_only is given. Paths of gaitlab's demo that are not ported yet raise
-NotImplementedError: --smooth, rendering (video output unless --save_vid
-is passed, --mesh_render, --display, --save_obj), detection (no
---tracking_path), --stream / --onepass, --precision other than float32, and
---parallel.
+joints2d, bboxes, frame_ids) and file naming. People come from
+precomputed tracklets (--tracking_path) or from a detector (--detector:
+YOLOv3 on the card, or the median-background detector on the host) and
+SORT; --stream decodes straight from the video instead of a PNG folder.
+Runs on CUDA unless --cpu_only is given. Paths of gaitlab's demo that are
+not ported yet raise NotImplementedError: rendering (video output unless
+--save_vid is passed, --mesh_render, --display, --save_obj), --onepass,
+--precision other than float32, and --parallel.
 
 Usage:
   python -m gaitlab_torch.cli.demo --vid_file clip.mp4 \
-      --tracking_path tracks.pkl --save_vid --output_folder out/
+      --detector median_bg --smooth --save_vid --output_folder out/
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["yolo", "yolo_tiny", "yolo_v3", "median_bg",
                             "dnn"],
                    help="object detector to be used for bbox tracking "
-                        "(not ported yet: pass --tracking_path)")
+                        "(yolo tells the variant from the weight file; "
+                        "yolo_tiny/yolo_v3 force one)")
     p.add_argument("--yolo_img_size", type=int, default=416,
                    help="input image size for yolo detector")
     p.add_argument("--tracker_batch_size", type=int, default=12,
@@ -82,8 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="path to SMPL model pkl/npz (defaults to "
                         "data/smpl_data per config).")
     p.add_argument("--stream", action="store_true",
-                   help="decode frames straight from the video (not ported "
-                        "yet).")
+                   help="decode frames straight from the video (no PNG "
+                        "frame folder); needs video output off "
+                        "(--save_vid).")
     p.add_argument("--onepass", action="store_true",
                    help="single-decode pipeline (not ported yet).")
     p.add_argument("--precision", type=str, default=None,
@@ -99,13 +103,10 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise NotImplementedError for every flag whose path is not ported."""
     unported = {
-        "--smooth": args.smooth,
         "video output (pass --save_vid to turn it off)": args.save_vid,
         "--mesh_render": args.mesh_render,
         "--display": args.display,
         "--save_obj": args.save_obj,
-        "detection (pass --tracking_path)": not args.tracking_path,
-        "--stream": args.stream,
         "--onepass": args.onepass,
         f"--precision {args.precision}": args.precision not in (None,
                                                                 "float32"),
@@ -168,41 +169,87 @@ def load_pickle(path: str):
     return joblib.load(path)
 
 
-def load_tracklets(args) -> tuple[dict, list]:
-    """Precomputed tracklets -> split at large gaps (smooth_tracking) ->
-    tracks of at least MIN_NUM_FRAMES frames."""
-    from gaitlab_torch.pipeline import tracks
+def run_tracking(args, image_folder, video_file=None, device=None):
+    """Tracklets split at large gaps (smooth_tracking), with the sorted
+    list of their frame ids. From --tracking_path when given; else a
+    detector on `device` (the model's) and SORT over the clip in chunks of
+    64 frames, never the whole clip in memory: from the video itself with
+    `video_file` (--stream), the median-background model fitted on the
+    first 64 frames; from the frame folder otherwise, that model fitted on
+    at most 60 frames sampled across the clip."""
+    from gaitlab_torch.pipeline import detect, tracks, video
 
-    if not osp.isfile(args.tracking_path):
-        raise FileNotFoundError(
-            f"tracking file not found: {args.tracking_path}")
-    tracking_results = load_pickle(args.tracking_path)
-    if 0 not in list(tracking_results.keys()):
-        tracking_results = {0: tracking_results}
-    print(f'Loaded precomputed tracklets from "{args.tracking_path}"')
-    tracking_results, num_frames_list = tracks.smooth_tracking(
-        tracking_results)
-    for person_id in list(tracking_results.keys()):
-        if tracking_results[person_id]["frames"].shape[0] < MIN_NUM_FRAMES:
-            del tracking_results[person_id]
-    return tracking_results, num_frames_list
+    if args.tracking_path:
+        if not osp.isfile(args.tracking_path):
+            raise FileNotFoundError(
+                f"tracking file not found: {args.tracking_path}")
+        tracking_results = load_pickle(args.tracking_path)
+        if 0 not in list(tracking_results.keys()):
+            tracking_results = {0: tracking_results}
+        print(f'Loaded precomputed tracklets from "{args.tracking_path}"')
+        return tracks.smooth_tracking(tracking_results)
+
+    detector = detect.get_detector(
+        args.detector, input_size=args.yolo_img_size,
+        batch=args.tracker_batch_size, device=device)
+    median_bg = isinstance(detector, detect.MedianBackgroundDetector)
+    if video_file is not None:
+        if median_bg:
+            head, got = [], 0
+            for chunk in video.VideoChunkReader(video_file, chunk=64):
+                head.append(chunk)
+                got += len(chunk)
+                if got >= 64:
+                    break
+            detector.fit(np.concatenate(head, axis=0))
+
+        def detections():
+            for chunk in video.VideoChunkReader(video_file, chunk=64,
+                                                reuse_buffers=True):
+                yield from detector(chunk)
+    else:
+        files = video.list_image_files(image_folder)
+        if median_bg:
+            # sampled across the clip: a sample from its head would bake a
+            # person standing still in the first seconds into the
+            # background
+            idx = np.unique(np.linspace(0, len(files) - 1,
+                                        min(60, len(files))).astype(int))
+            detector.fit(video.load_frames([files[i] for i in idx]))
+
+        def detections():
+            for s0 in range(0, len(files), 64):
+                yield from detector(video.load_frames(files[s0:s0 + 64]))
+
+    return tracks.smooth_tracking(tracks.track_video(detections()))
 
 
-def _person_output(out, bboxes, frames, args, orig_width,
+def _person_output(out, bboxes, frames, person_id, args, model, orig_width,
                    orig_height) -> dict:
-    """run_track outputs -> the reference pkl entry: crop -> image
+    """run_track outputs -> the reference pkl entry: optional one-euro
+    smoothing (one SMPL pass on the model's device), crop -> image
     coordinates and the skeleton format conversion."""
     from gaitlab_torch.body.joints import convert_kps
-    from gaitlab_torch.pipeline import coords
+    from gaitlab_torch.pipeline import coords, smoothing
+
+    pred_verts, pred_pose, pred_joints3d = (out["verts"], out["pose"],
+                                            out["joints3d"])
+    if args.smooth:
+        print(f"Running smoothing on person {person_id}, "
+              f"min_cutoff: {args.smooth_min_cutoff}, "
+              f"beta: {args.smooth_beta}")
+        pred_verts, pred_pose, pred_joints3d = smoothing.smooth_pose(
+            out["pose"], out["betas"], smpl_params=model.smpl,
+            min_cutoff=args.smooth_min_cutoff, beta=args.smooth_beta)
 
     output_dict = {
         "pred_cam": out["pred_cam"],
         "orig_cam": coords.convert_crop_cam_to_orig_img(
             out["pred_cam"], bboxes, orig_width, orig_height),
-        "verts": out["verts"],
-        "pose": out["pose"],
+        "verts": pred_verts,
+        "pose": pred_pose,
         "betas": out["betas"],
-        "joints3d": out["joints3d"],
+        "joints3d": pred_joints3d,
         "joints2d": coords.convert_crop_coords_to_orig_img(
             bboxes, out["joints2d"], crop_size=224),
         "bboxes": bboxes,
@@ -213,7 +260,7 @@ def _person_output(out, bboxes, frames, args, orig_width,
         # skeleton
         try:
             output_dict["joints3d"] = convert_kps(
-                out["joints3d"], "spin2", args.joint_type)
+                pred_joints3d, "spin2", args.joint_type)
         except KeyError:
             print(f"Unknown skeleton type: {args.joint_type}.")
     return output_dict
@@ -241,6 +288,11 @@ def main(args):
     cfg, _ = parse_args(args)
 
     video_file = args.vid_file
+    if not args.img_folder and "://" in video_file:
+        sys.exit(
+            f"Input video \"{video_file}\" is a URL. This build runs "
+            "offline (no network egress): download the clip first "
+            "(e.g. yt-dlp on a connected machine) and pass the local file.")
     if not args.img_folder and not osp.isfile(video_file):
         sys.exit(f"Input video \"{video_file}\" does not exist!")
     output_path = osp.join(
@@ -250,21 +302,33 @@ def main(args):
     os.makedirs(output_path, exist_ok=True)
 
     model = load_model(args, cfg)  # before any decode: fail fast on no CUDA
+    stream = bool(args.stream) and not args.img_folder
     if args.img_folder:
         image_folder = args.img_folder
         import cv2
 
-        first = cv2.imread(video.list_image_files(image_folder)[0])
-        orig_height, orig_width = first.shape[:2]
+        files = video.list_image_files(image_folder)
+        num_frames = len(files)
+        orig_height, orig_width = cv2.imread(files[0]).shape[:2]
+    elif stream:
+        image_folder = None
+        num_frames, _, orig_width, orig_height = video.get_video_info(
+            video_file)
     else:
-        image_folder, _, img_shape = video.video_to_images(
+        image_folder, num_frames, img_shape = video.video_to_images(
             video_file, return_info=True)
         orig_height, orig_width = img_shape[:2]
     try:
-        image_files = np.array(video.list_image_files(image_folder))
-        print(f"Input video number of frames {len(image_files)}")
-        tracking_results, num_frames_list = load_tracklets(args)
+        print(f"Input video number of frames {num_frames}")
+        tracking_results, num_frames_list = run_tracking(
+            args, image_folder, video_file=video_file if stream else None,
+            device=model.device)
+        for person_id in list(tracking_results.keys()):
+            if tracking_results[person_id]["frames"].shape[0] < MIN_NUM_FRAMES:
+                del tracking_results[person_id]
         runner = GRNetRunner(model, bbox_scale=1.0, **_runner_kwargs(args))
+        image_files = (np.array(video.list_image_files(image_folder))
+                       if image_folder else None)
 
         print("Running Model on each tracklet...")
         grnet_time = time.time()
@@ -272,9 +336,15 @@ def main(args):
         for person_id in list(tracking_results.keys()):
             bboxes = np.array(tracking_results[person_id]["bbox"], np.float32)
             frames = np.asarray(tracking_results[person_id]["frames"])
-            out = runner.run_track(list(image_files[frames]), bboxes)
+            if image_files is None:  # --stream: decode from the video
+                source = video.VideoChunkReader(video_file, frame_ids=frames,
+                                                reuse_buffers=True)
+            else:
+                source = list(image_files[frames])
+            out = runner.run_track(source, bboxes)
             grnet_results[person_id] = _person_output(
-                out, bboxes, frames, args, orig_width, orig_height)
+                out, bboxes, frames, person_id, args, model, orig_width,
+                orig_height)
         fps = len(num_frames_list) / (time.time() - grnet_time)
         print(f"VIBE FPS: {fps:.2f}")
         t = time.time() - total_time
@@ -294,7 +364,7 @@ def main(args):
         with open(pklpath, "wb") as f:
             pickle.dump(grnet_results, f)
     finally:
-        if not args.img_folder:
+        if not args.img_folder and image_folder:
             shutil.rmtree(image_folder)
     print("================= END =================")
     return grnet_results

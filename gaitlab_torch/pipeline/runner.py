@@ -1,12 +1,13 @@
 """Track-level inference: frames -> crops -> bucketed GRNet -> numpy.
 
 Counterpart of gaitlab/pipeline/runner.py for one card in float32. Frames
-arrive in chunks of `ingest_chunk` (from memory or from image files) and
-are cropped on the device (small frames: only full frames cross to the
-card) or with cv2 on the host (large frames: only 224^2 crops cross). The
-model runs at a small set of batch sizes ("buckets"), with the tail
-padded by repeating its last crop, so that every forward has one of a few
-shapes. The weights stay on the model's device.
+arrive in chunks (from memory or image files, `ingest_chunk` at a time, or
+as a video reader decodes them) and are cropped on the device (small
+frames: only full frames cross to the card) or with cv2 on the host (large
+frames: only 224^2 crops cross). The model runs at a small set of batch
+sizes ("buckets"), with the tail padded by repeating its last crop, so
+that every forward has one of a few shapes. The weights stay on the
+model's device.
 """
 
 from __future__ import annotations
@@ -102,13 +103,18 @@ class GRNetRunner:
     def _crop_stream(self, frames_or_paths, bboxes: np.ndarray,
                      scale: Optional[float] = None):
         """Yield normalized NHWC crop chunks on the model's device for a
-        track given as an (N,H,W,3) uint8 array or a list of image paths."""
+        track given as an (N,H,W,3) uint8 array, a chunked frame source
+        (video.VideoChunkReader) or a list of image paths."""
         scale = self.bbox_scale if scale is None else scale
         n = len(bboxes)
         if isinstance(frames_or_paths, np.ndarray):
             chunks = (frames_or_paths[s:s + self.ingest_chunk]
                       for s in range(0, n, self.ingest_chunk))
             frame_hw = frames_or_paths.shape[1] * frames_or_paths.shape[2]
+        elif hasattr(frames_or_paths, "image_hw"):
+            chunks = iter(frames_or_paths)
+            hh, ww = frames_or_paths.image_hw
+            frame_hw = hh * ww
         else:
             paths = list(frames_or_paths)
             chunks = (video.load_frames(paths[s:s + self.ingest_chunk])
@@ -120,6 +126,11 @@ class GRNetRunner:
             crop_on = ("device" if frame_hw <= 2 * self.crop_size ** 2
                        else "host")
         device = self.model.device
+        # a reader with reuse_buffers=True hands out views that its next
+        # chunk rewrites: the host crop reads them at once, but the device
+        # crop gets a copy, so that no tensor (nor a later asynchronous
+        # upload) aliases the ring
+        ring = bool(getattr(frames_or_paths, "reuse_buffers", False))
         s = 0
         for chunk in chunks:
             e = s + len(chunk)
@@ -127,6 +138,8 @@ class GRNetRunner:
                 yield crop_mod.normalize_image(torch.from_numpy(
                     self._host_crop(chunk, bboxes[s:e], scale)).to(device))
             else:
+                if ring:
+                    chunk = np.array(chunk)
                 yield crop_mod.crop_and_normalize(
                     chunk, bboxes[s:e], scale=scale,
                     crop_size=self.crop_size, device=device)

@@ -1,4 +1,4 @@
-"""gaitlab flax variables -> this package's torch state_dict.
+"""gaitlab flax variables -> this package's torch state_dicts (GRNet, YOLO).
 
 Inverts gaitlab/weights/torch_import.py::_convert_leaf without importing
 jax or gaitlab: the variables arrive as nested mappings of arrays
@@ -14,7 +14,8 @@ jax or gaitlab: the variables arrive as nested mappings of arrays
                                          (+ num_batches_tracked = 0)
 
 gaitlab's module names are the reference's torch paths with '.' written
-'_' (layer1_0, fuse_layers_0_1_0, upsample_stage_2_1, ...).
+'_' (layer1_0, fuse_layers_0_1_0, upsample_stage_2_1, ...). Its YOLO
+module names are the port's own (conv{i}.conv, conv{i}.bn, conv{i}).
 """
 
 from __future__ import annotations
@@ -68,16 +69,27 @@ def _leaves(tree: Mapping, path=()):
             yield path + (k,), v
 
 
-def state_dict_from_flax(variables: Mapping) -> dict:
-    """gaitlab GRNetCore (or sub-module) variables -> torch state_dict."""
+def _state_dict(variables: Mapping, module_path) -> dict:
     sd = {}
     for coll in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(coll, {})):
             *mods, leaf = path
-            module = torch_module_path(mods)
+            module = module_path(mods)
             v = _convert_leaf(mods[-1], leaf, np.asarray(value, np.float32))
             sd[f"{module}.{_LEAF[leaf]}"] = torch.from_numpy(
                 np.ascontiguousarray(v))
             if leaf == "mean":
                 sd[f"{module}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def state_dict_from_flax(variables: Mapping) -> dict:
+    """gaitlab GRNetCore (or sub-module) variables -> torch state_dict."""
+    return _state_dict(variables, torch_module_path)
+
+
+def yolo_state_dict_from_flax(variables: Mapping) -> dict:
+    """gaitlab YoloNet variables -> the state_dict of gaitlab_torch's
+    YoloNet, whose submodules carry the Flax names ('conv{i}.conv',
+    'conv{i}.bn', 'conv{i}')."""
+    return _state_dict(variables, ".".join)

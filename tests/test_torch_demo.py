@@ -133,11 +133,10 @@ TRACKED = ["--vid_file", "x.mp4", "--tracking_path", "t.pkl"]
 
 @pytest.mark.parametrize("argv", [
     TRACKED,  # video output is on unless --save_vid is passed
-    ["--vid_file", "x.mp4", "--save_vid"],  # detection
     *([*TRACKED, "--save_vid", *flag] for flag in (
-        ["--smooth"], ["--mesh_render"], ["--display"], ["--save_obj"],
-        ["--stream"], ["--onepass"], ["--precision", "high"],
-        ["--precision", "default"], ["--parallel", "dp"]))])
+        ["--mesh_render"], ["--display"], ["--save_obj"], ["--onepass"],
+        ["--precision", "high"], ["--precision", "default"],
+        ["--parallel", "dp"]))])
 def test_unported_paths_raise(argv):
     with pytest.raises(NotImplementedError, match="not ported"):
         pt_demo.main(pt_demo.build_parser().parse_args(argv))
@@ -187,9 +186,13 @@ loaded = [m for m, v in sys.modules.items() if v is not None and (
 assert not loaded, loaded
 # nothing is compiled or prepared for compiling at import
 assert "torch.utils.cpp_extension" not in sys.modules
-print(len(names))
+print(" ".join(names))
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 25
+    names = set(proc.stdout.split())
+    assert len(names) >= 30
+    assert {f"gaitlab_torch.{m}" for m in (
+        "core.filters", "nn.yolo", "pipeline.detect", "pipeline.fetch",
+        "pipeline.smoothing", "pipeline.tracks", "pipeline.video")} <= names
