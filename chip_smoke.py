@@ -45,9 +45,28 @@ Phases, each of which exits non-zero on failure:
              frame-sized box per cell (kernels zeroed, biases set), so that
              NMS keeps one box a frame: the detector must be a YoloDetector
              on CUDA whose forwards were counted
-Two lines before the last list every kernel as JSON (launches from phase
-6, this slice's main path; max_abs_err over phases 2 and 6), the line
-before the last holds the card's name and power limit, and the last line is
+  8. gait    MAX-GRNet (GRNet + the gait-feature corrector at gaitlab's
+             defaults) from `api.load_pipeline(use_gait_feat=True)` with
+             phase 3's checkpoint: card against CPU on a 32-frame track
+             (pred_avg, pred_phase, kp_3d, verts; TF32 on printed beside),
+             300 frames at bucket 300 against padded to 450, model-loop
+             frames/s at buckets 256 and 450 with and without the branch
+             and a profile of one gait bucket; a 900-frame track (two
+             forwards at 450) cropped on the host and fed to a
+             ForwardStream 32 frames at a time, whose feeds must not wait
+             for the card (torch's sync debug mode at "error", and less
+             host time than one forward takes on the card); then
+             `api.analyze_video` on walk_det.mp4 two-pass (a check run
+             holding every kernel call against its plain version, then the
+             main run) and one-pass (checked too), which must agree on
+             persons and frame ids, `gait_report` per person, and a timed
+             `demo --onepass`
+Two lines before the last list every kernel as JSON: launches_by_path
+holds the launches of each main path, phase 6's `--smooth` demo
+("demo_smooth") and phase 8's two-pass `analyze_video` ("api_gait"), each
+counted from 0 just before its run; launches is their sum; max_abs_err is
+the largest over phases 2, 6 and 8. The line before the last holds the card's name and power limit, and the
+last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX or of the gaitlab package.
 """
@@ -84,6 +103,21 @@ DET_SIZE, DET_BATCH, DET_CPU_FRAMES = 416, 12, 2
 # orders; the bound is max|card - cpu| <= YOLO_RTOL * max|cpu| per map
 YOLO_RTOL = 1e-3
 DET_TRACKS = ((0, 140), (60, 160))  # [start, end) of the two walkers
+GAIT_FRAMES = 450  # the first 450 frames of the walked track, on the card
+STREAM_FRAMES, STREAM_FEED = 900, 32  # two forwards at bucket 450
+GAIT_CPU_FRAMES = 32  # one track at bucket 32, card against CPU
+# gait estimates card against CPU: the same ~100 fp32 convs as phase 4,
+# then a GRU and an attention block, summed in two libraries' orders;
+# max|card - cpu| <= GAIT_CPU_RTOL * max(1, max|cpu|) (TF32 moves them
+# more, and is printed beside)
+GAIT_CPU_RTOL = 1e-3
+PAD_FRAMES = 300  # at bucket 300 and padded to 450
+# padded against exact: the same frames at other batch sizes (cuDNN may
+# pick other algorithms) and masked keys; max|a - b| <= PAD_ATOL * max(1,
+# max|a|), the CPU tests' 1e-4
+PAD_ATOL = 1e-4
+GAIT_LOOP_BUCKETS = (256, 450)
+GAIT_PROFILE_BUCKET = 256
 TRACK_SLACK = 3  # SORT emits a new track from its third hit
 # smooth_pose on the card against its CPU run: the SMPL tolerances of the
 # CPU tests (tests/test_torch_filters.py, allclose rtol/atol) for vertices
@@ -824,6 +858,36 @@ def check_smooth_pose(args, kw, card_out) -> None:
             f"ms {e.key[:80]}")
 
 
+def hold_calls(tag: str, checked_calls: dict, main_calls: dict,
+               main_counts: dict) -> dict:
+    """Every kernel call of a main path at a shape checked on a check run's
+    own inputs. The model's activations are not of unit scale, so the
+    phase-2 tolerance scales with the largest |output| of each call.
+    Returns each kernel's largest checked error."""
+    errs = {}
+    for name, checked in checked_calls.items():
+        errs[name] = max(e["err"] for _, e in checked)
+        tol = B1_ATOL if name == "keypoint_attention" else B2_ATOL
+        main = [shapes for shapes, _ in main_calls[name]]
+        for shapes, e in checked:
+            limit = tol * max(1.0, e["scale"])
+            log(f"[{tag}] {name} B={shapes[-1][0]} on the check run's own "
+                f"inputs: max_abs_err {e['err']:.3e} (tolerance {tol:g} x "
+                f"max(1, max|out| {e['scale']:.3g}) = {limit:.3e}); against "
+                f"float64: kernel {e['kernel64']:.3e}, plain "
+                f"{e['plain64']:.3e}")
+            if not e["err"] <= limit:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version on the path's inputs: {e}")
+        log(f"[{tag}] {name}: main path batches "
+            f"{[sh[-1][0] for sh in main]}, all checked")
+        unchecked = set(main) - {sh for sh, _ in checked}
+        if len(main) != main_counts[name] or unchecked:
+            raise AssertionError(f"{name}: main-path shapes {unchecked} were "
+                                 f"not checked")
+    return errs
+
+
 def track_phase(vid: str, ckpt: str, workdir: str) -> tuple[dict, dict]:
     """The demo from a raw video. A first run with --smooth meets the
     model's new bucket shapes and holds every kernel call of it against
@@ -873,30 +937,8 @@ def track_phase(vid: str, ckpt: str, workdir: str) -> tuple[dict, dict]:
                                  f"want {want_b2}")
         if tag == "check":
             check_smooth_pose(*seen["check"]["smooth"])
-    # every kernel call of the main path at a shape checked in this phase;
-    # the model's activations are not of unit scale, so the phase-2
-    # tolerance scales with the largest |output| of each call
-    errs = {}
-    for name, checked in seen["check"]["calls"].items():
-        errs[name] = max(e["err"] for _, e in checked)
-        tol = B1_ATOL if name == "keypoint_attention" else B2_ATOL
-        main = [shapes for shapes, _ in seen["smooth"]["calls"][name]]
-        for shapes, e in checked:
-            limit = tol * max(1.0, e["scale"])
-            log(f"[track] {name} B={shapes[-1][0]} on the check run's own "
-                f"inputs: max_abs_err {e['err']:.3e} (tolerance {tol:g} x "
-                f"max(1, max|out| {e['scale']:.3g}) = {limit:.3e}); against "
-                f"float64: kernel {e['kernel64']:.3e}, plain "
-                f"{e['plain64']:.3e}")
-            if not e["err"] <= limit:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version on the demo's inputs: {e}")
-        log(f"[track] {name}: main path batches "
-            f"{[sh[-1][0] for sh in main]}, all checked")
-        unchecked = set(main) - {sh for sh, _ in checked}
-        if len(main) != runs["smooth"][1][name] or unchecked:
-            raise AssertionError(f"{name}: main-path shapes {unchecked} were "
-                                 f"not checked")
+    errs = hold_calls("track", seen["check"]["calls"],
+                      seen["smooth"]["calls"], runs["smooth"][1])
     saved = runs["smooth"][0]
     for pid, (s, e) in enumerate(DET_TRACKS):
         fr = saved[pid]["frame_ids"]
@@ -990,6 +1032,319 @@ def yolo_phase(vid: str, ckpt: str, weights: str, workdir: str) -> None:
         check_person(pid, person)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the gait branch (MAX-GRNet), the API and --onepass
+# ---------------------------------------------------------------------------
+
+def gait_track(workdir: str, trackfile: str):
+    """walk.mp4's first track (150 frames, from phase 3's PNGs) walked
+    forward, back, forward, ... for STREAM_FRAMES frames: the frames, their
+    bboxes and the image centre of every frame, on the host."""
+    import numpy as np
+
+    from gaitlab_torch.cli.demo import load_pickle
+    from gaitlab_torch.pipeline import video
+
+    track = load_pickle(trackfile)[0]
+    paths = video.list_image_files(osp.join(workdir, "calib"))
+    frames = video.load_frames([paths[i] for i in track["frames"]])
+    n = len(frames)
+    idx = np.resize(np.concatenate([np.arange(n), np.arange(n - 1, -1, -1)]),
+                    STREAM_FRAMES)
+    cimg = np.tile(np.float32([CLIP_W / 2, CLIP_H / 2]), (STREAM_FRAMES, 1))
+    return frames[idx], np.asarray(track["bbox"], np.float32)[idx], cimg
+
+
+def gait_card_vs_cpu(model, crops, bbox, cimg) -> None:
+    """One GAIT_CPU_FRAMES-frame track at its own bucket on the card and on
+    the CPU with the same weights; then on the card with TF32 on."""
+    import torch
+
+    from gaitlab_torch.nn.grnet import GRNet, vp_regress
+
+    n = GAIT_CPU_FRAMES
+    x, bb, ci = crops[:n], bbox[:n], cimg[:n]
+    cpu = GRNet.create(seed=SEED, device="cpu", use_gait_feat=True)
+    cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                model.module.state_dict().items()})
+    card = model.forward(x, bbox=bb, cimg=ci, n_valid=n)[0]
+    host = cpu.forward(x.cpu(), bbox=bb, cimg=ci, n_valid=n)[0]
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            tf32 = vp_regress(model.smpl, model.module(
+                x.permute(0, 3, 1, 2).contiguous(),
+                bbox=torch.from_numpy(bb).cuda(),
+                cimg=torch.from_numpy(ci).cuda(), n_valid=n))[0]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    for k in ("pred_avg", "pred_phase", "kp_3d", "verts"):
+        want = host[k]
+        err = (card[k].cpu() - want).abs().max().item()
+        tf32_err = (tf32[k].cpu() - want).abs().max().item()
+        scale = want.abs().max().item()
+        limit = (CPU_ATOL_M if k in ("kp_3d", "verts")
+                 else GAIT_CPU_RTOL * max(1.0, scale))
+        log(f"[gait] card vs CPU, {n} frames at bucket {n}: {k} max abs "
+            f"{err:.3e} (max |cpu| {scale:.3g}; limit {limit:.3e}); with "
+            f"TF32 on {tf32_err:.3e}")
+        if not (err <= limit and torch.isfinite(card[k]).all()):
+            raise AssertionError(f"gait branch: card and CPU disagree on {k}")
+
+
+def gait_padding(model, crops, bbox, cimg) -> None:
+    """PAD_FRAMES frames at bucket PAD_FRAMES and padded to 450: the gait
+    estimates and the joints of the real frames must not move."""
+    import numpy as np
+
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    n = PAD_FRAMES
+    outs = [GRNetRunner(model, buckets=(b,)).forward_crops(
+        crops[:n], bbox=bbox[:n], cimg=cimg[:n]) for b in (n, 450)]
+    for k in ("pred_avg", "pred_phase", "kp_3d"):
+        a, b = outs[0][k], outs[1][k]
+        err = float(np.abs(a - b).max())
+        limit = PAD_ATOL * max(1.0, float(np.abs(a).max()))
+        log(f"[gait] {n} frames at bucket {n} vs padded to 450: {k} "
+            f"{a.shape} max abs {err:.3e} (limit {limit:.3e})")
+        if not err <= limit:
+            raise AssertionError(f"padding moves the gait branch's {k}")
+
+
+def gait_loop(plain, gait, crops, bbox, cimg) -> dict:
+    """Model-loop frames/s (CUDA events, median of 5) at each of
+    GAIT_LOOP_BUCKETS with and without the gait branch, and a profile of
+    one gait bucket. Returns MAX-GRNet's ms per bucket."""
+    import torch
+
+    def events_ms(fn, reps=5):
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    gait_ms = {}
+    for b in GAIT_LOOP_BUCKETS:
+        x, bb, ci = crops[:b], bbox[:b], cimg[:b]
+        ms = events_ms(lambda: plain.forward(x))
+        gait_ms[b] = events_ms(lambda: gait.forward(x, bbox=bb, cimg=ci,
+                                                     n_valid=b))
+        log(f"[gait] model loop at bucket {b} (crops -> GRNet -> SMPL, "
+            f"float32, TF32 off): without the gait branch {ms:.2f} ms = "
+            f"{b / ms * 1e3:.1f} frames/s; MAX-GRNet {gait_ms[b]:.2f} ms = "
+            f"{b / gait_ms[b] * 1e3:.1f} frames/s "
+            f"({100 * (gait_ms[b] / ms - 1):+.2f}%)")
+
+    b = GAIT_PROFILE_BUCKET
+    x, bb, ci = crops[:b], bbox[:b], cimg[:b]
+    profiled(f"one MAX-GRNet bucket of {b}",
+             lambda: gait.forward(x, bbox=bb, cimg=ci, n_valid=b), 12)
+    return gait_ms
+
+
+def gait_stream(runner, frames, bbox, cimg, forward_ms: float) -> None:
+    """The whole STREAM_FRAMES-frame track (two forwards at bucket 450)
+    through a ForwardStream session as the one-pass pipeline drives it:
+    STREAM_FEED frames at a time are cropped on the host (cv2) and fed with
+    their rows; second of two runs. Printed: host ms of the crops, of the
+    feeds and of finish(), and the wall time beside the card's time. The
+    feeds run with torch's sync debug mode at "error", so any operation of
+    theirs that makes the host wait for the card raises; and they must take
+    less host time than one forward takes on the card (forward_ms): had a
+    feed waited for a forward, the feeds would include it."""
+    import numpy as np
+    import torch
+
+    def run():
+        crop_s = feed_s = 0.0
+        t0 = time.perf_counter()
+        session = runner.open_stream()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for s in range(0, len(frames), STREAM_FEED):
+                e = s + STREAM_FEED
+                t = time.perf_counter()
+                u8 = runner._host_crop(frames[s:e], bbox[s:e],
+                                       runner.bbox_scale)
+                crop_s += time.perf_counter() - t
+                t = time.perf_counter()
+                session.feed(u8, bbox=bbox[s:e], cimg=cimg[s:e])
+                feed_s += time.perf_counter() - t
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        fed = time.perf_counter()
+        out = session.finish()
+        end = time.perf_counter()
+        return (crop_s * 1e3, feed_s * 1e3, (end - fed) * 1e3,
+                (end - t0) * 1e3, out)
+
+    run()
+    crop_ms, feed_ms, finish_ms, wall_ms, out = run()
+    n_fwd = -(-len(frames) // runner.buckets[-1])
+    log(f"[gait] ForwardStream, {len(frames)} frames cropped on the host and "
+        f"fed {STREAM_FEED} at a time ({n_fwd} forwards at bucket "
+        f"{runner.buckets[-1]}, {forward_ms:.2f} ms each on the card): host "
+        f"crops {crop_ms:.2f} ms, feeds {feed_ms:.2f} ms, finish "
+        f"{finish_ms:.2f} ms; wall {wall_ms:.2f} ms = "
+        f"{len(frames) / wall_ms * 1e3:.1f} frames/s (crops + card "
+        f"{crop_ms + n_fwd * forward_ms:.2f} ms)")
+    if out["kp_3d"].shape[0] != len(frames) or not all(
+            np.isfinite(out[k]).all() for k in ("pred_avg", "pred_phase")):
+        raise AssertionError("ForwardStream: wrong or non-finite outputs")
+    if not feed_ms < forward_ms:
+        raise AssertionError("the feeds waited for the card's forwards")
+
+
+def profiled(label: str, fn, top: int) -> None:
+    """One call of `fn` under torch.profiler: device busy share of the
+    window, device operations, and the top kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    if total <= 0:
+        log(f"[gait] profile of {label}: no device time seen, not measured")
+        return
+    log(f"[gait] profile of {label}: device busy {total:.3f} ms of a "
+        f"{wall_ms:.2f} ms window ({100 * total / wall_ms:.1f}%), "
+        f"{sum(e.count for e in kernels)} device operations")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        kms = e.self_device_time_total / 1e3
+        log(f"[gait]   {kms:8.3f} ms {100 * kms / total:5.1f}% x{e.count:<5d}"
+            f" {e.key[:90]}")
+
+
+def api_phase(det_vid: str, runner, ckpt: str, workdir: str
+              ) -> tuple[dict, dict]:
+    """gaitlab_torch.api.analyze_video with the gait pipeline, two-pass and
+    one-pass, and gait_report. A first two-pass run holds every kernel call
+    against the plain version on its own inputs; the timed two-pass run is
+    this phase's main path; the one-pass run is checked call by call too and
+    must give the two-pass persons and frame ids. Then a timed
+    `demo --onepass`. Returns the main path's launches and each kernel's
+    largest checked error."""
+    import numpy as np
+
+    from gaitlab_torch import api
+    from gaitlab_torch.gait.features import FEATURE_NAMES
+    from gaitlab_torch.ops.blendshapes import blendshapes
+    from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
+
+    fns = {"blendshapes": blendshapes,
+           "keypoint_attention": keypoint_attention_fused}
+    runs, seen = {}, {}
+    for tag, onepass in (("check", False), ("twopass", False),
+                         ("onepass", True)):
+        with kernel_spies(check=tag != "twopass") as seen[tag]:
+            for fn in fns.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = api.analyze_video(det_vid, runner=runner,
+                                    joint_type="kinectv2", onepass=onepass)
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in fns.items()}
+        runs[tag] = (res, launches, wall)
+        spans_ = {p: (int(r["frame_ids"][0]), int(r["frame_ids"][-1]) + 1,
+                      len(r["frame_ids"])) for p, r in res.items()}
+        log(f"[gait] api.analyze_video (gait pipeline, smooth, "
+            f"{'one-pass' if onepass else 'two-pass'}; {tag} run): "
+            f"{wall:.2f} s; kernel launches {launches}; persons "
+            f"{{id: (first, end, frames)}} {spans_}")
+        if len(res) != 2:
+            raise AssertionError(f"expected two persons, got {spans_}")
+        for pid, r in res.items():
+            n = len(r["frame_ids"])
+            for k, shape in (("joints3d", (n, 25, 3)), ("verts", (n, 6890, 3)),
+                             ("pose", (n, 72)), ("orig_cam", (n, 4))):
+                v = np.asarray(r[k])
+                if v.shape != shape or not np.all(np.isfinite(v)):
+                    raise AssertionError(f"person {pid} {k}: {v.shape}")
+        if launches["blendshapes"] != launches["keypoint_attention"] + len(res) \
+                or launches["keypoint_attention"] <= 0:
+            raise AssertionError(f"unexpected launches {launches}")
+    frames = {tag: sorted(r["frame_ids"].tolist() for r in runs[tag][0].values())
+              for tag in runs}
+    if frames["onepass"] != frames["twopass"]:
+        raise AssertionError("one-pass and two-pass disagree on frames")
+    log("[gait] one-pass and two-pass agree: 2 persons, the same frame ids")
+    for tag in ("twopass", "onepass"):
+        for pid, rep in api.gait_report(runs[tag][0], fps=20.0).items():
+            f = rep["features"]
+            log(f"[gait] gait_report {tag} person {pid}: "
+                f"{ {k: round(float(f[k]), 6) for k in FEATURE_NAMES} }"
+                f"; heel strikes left {len(f['events']['left'])}, right "
+                f"{len(f['events']['right'])}")
+    errs = hold_calls("gait", seen["check"]["calls"],
+                      seen["twopass"]["calls"], runs["twopass"][1])
+    one = hold_calls("gait one-pass", seen["onepass"]["calls"],
+                     seen["onepass"]["calls"], runs["onepass"][1])
+    errs = {k: max(v, one[k]) for k, v in errs.items()}
+
+    saved, launches, wall = drive_demo(
+        ["--vid_file", det_vid, "--detector", "median_bg", "--ckpt", ckpt,
+         "--onepass"], osp.join(workdir, "det_onepass"), "walk_det_mp4")
+    log(f"[gait] demo --detector median_bg --onepass: {wall:.2f} s; kernel "
+        f"launches {launches}; persons [first, end) frames {spans(saved)}")
+    if len(saved) != 2 or min(launches.values()) <= 0:
+        raise AssertionError("demo --onepass: expected two persons on the card")
+    for pid, person in saved.items():
+        check_person(pid, person)
+    return runs["twopass"][1], errs
+
+
+def gait_phase(ckpt: str, workdir: str, trackfile: str, det_vid: str
+               ) -> tuple[dict, dict]:
+    import torch
+
+    from gaitlab_torch import api
+    from gaitlab_torch.cli.demo import build_model
+    from gaitlab_torch.device import upload
+    from gaitlab_torch.pipeline.crop import normalize_image
+
+    model, runner = api.load_pipeline(ckpt=ckpt, use_gait_feat=True)
+    corr = sum(p.numel() for p in model.module.pfeat_corrector.parameters())
+    total = sum(p.numel() for p in model.module.parameters())
+    log(f"[gait] MAX-GRNet on {model.device}: {total / 1e6:.2f} M parameters, "
+        f"{corr / 1e6:.2f} M of them in the gait corrector (h_size 1024, 4 "
+        f"heads, 1 block, BiGRU 2x300)")
+    frames, bbox, cimg = gait_track(workdir, trackfile)
+    crops = normalize_image(upload(runner._host_crop(
+        frames[:GAIT_FRAMES], bbox[:GAIT_FRAMES], runner.bbox_scale),
+        model.device))
+    with kernel_spies(check=True) as seen:
+        gait_card_vs_cpu(model, crops, bbox, cimg)
+        gait_padding(model, crops, bbox, cimg)
+    errs = hold_calls("gait forward", seen["calls"], seen["calls"],
+                      {k: len(v) for k, v in seen["calls"].items()})
+    gait_ms = gait_loop(build_model(ckpt), model, crops, bbox, cimg)
+    del crops
+    torch.cuda.empty_cache()
+    gait_stream(runner, frames, bbox, cimg, gait_ms[runner.buckets[-1]])
+    torch.cuda.empty_cache()
+    launches, api_errs = api_phase(det_vid, runner, ckpt, workdir)
+    return launches, {k: max(v, api_errs[k]) for k, v in errs.items()}
+
+
 def main() -> int:
     import torch
 
@@ -1031,12 +1386,18 @@ def main() -> int:
         weights = detect_phase(det_vid, workdir)
         launches, path_errs = track_phase(det_vid, ckpt, workdir)
         yolo_phase(det_vid, ckpt, weights, workdir)
+        gait_launches, gait_errs = gait_phase(ckpt, workdir, trackfile,
+                                              det_vid)
+    paths = {"demo_smooth": launches, "api_gait": gait_launches}
     for r in rows:
-        r["launches"] = launches[r["name"]]
-        r["max_abs_err"] = max(r["max_abs_err"], path_errs[r["name"]])
+        r["launches_by_path"] = {p: n[r["name"]] for p, n in paths.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        r["max_abs_err"] = max(r["max_abs_err"], path_errs[r["name"]],
+                               gait_errs[r["name"]])
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from gaitlab_torch.core import geometry
+from gaitlab_torch.device import constant
 from gaitlab_torch.ops.blendshapes import blendshapes
 
 NUM_VERTS = 6890
@@ -196,8 +197,8 @@ def _rigid_transforms(rot_mats: torch.Tensor, joints: torch.Tensor):
     Returns (posed_joints (B,24,3), rel_transforms (B,24,4,4)), where the
     transforms have the rest pose removed (the LBS `A` matrices)."""
     B = rot_mats.shape[0]
-    rel = torch.cat([joints[:, :1],
-                     joints[:, 1:] - joints[:, list(PARENTS[1:])]], dim=1)
+    parents = constant(PARENTS[1:], "int64", joints.device)
+    rel = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, parents]], dim=1)
     Rs = [rot_mats[:, 0]]
     ts = [rel[:, 0]]
     for j in range(1, NUM_JOINTS):
@@ -248,7 +249,8 @@ def smpl_forward(params: SMPLParams, betas: torch.Tensor,
     verts, joints24 = lbs(params, betas, rot_mats)
     if joint_mode == "smpl24":
         return {"vertices": verts, "joints": joints24}
-    joints45 = torch.cat([joints24, verts[:, list(EXTRA_VERTEX_IDS)]], dim=1)
+    extra = constant(EXTRA_VERTEX_IDS, "int64", verts.device)
+    joints45 = torch.cat([joints24, verts[:, extra]], dim=1)
     if joint_mode == "smplx45":
         joints = joints45
     elif joint_mode in ("spin2", "spin"):
@@ -259,11 +261,13 @@ def smpl_forward(params: SMPLParams, betas: torch.Tensor,
             thorax = vertices2joints(
                 params.J_regressor_extra[THORAX_EXTRA_ROW:THORAX_EXTRA_ROW + 1],
                 verts)
-            hands = joints45[:, list(SPIN2_HAND_GATHER)]
+            hands = joints45[:, constant(SPIN2_HAND_GATHER, "int64",
+                                         verts.device)]
             joints = torch.cat([joints45[:, :24], hands, thorax], dim=1)
         else:
             extra9 = vertices2joints(params.J_regressor_extra, verts)
-            joints = torch.cat([joints45, extra9], dim=1)[:, list(SPIN49_GATHER)]
+            gather = constant(SPIN49_GATHER, "int64", verts.device)
+            joints = torch.cat([joints45, extra9], dim=1)[:, gather]
     else:
         raise ValueError(f"unknown joint_mode: {joint_mode}")
     return {"vertices": verts, "joints": joints}

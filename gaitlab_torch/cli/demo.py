@@ -6,11 +6,13 @@ schema per person (pred_cam, orig_cam, verts, pose, betas, joints3d,
 joints2d, bboxes, frame_ids) and file naming. People come from
 precomputed tracklets (--tracking_path) or from a detector (--detector:
 YOLOv3 on the card, or the median-background detector on the host) and
-SORT; --stream decodes straight from the video instead of a PNG folder.
+SORT; --stream decodes straight from the video instead of a PNG folder,
+and --onepass detects, tracks, crops and runs the model in one pass over
+it (ignored with --tracking_path or --img_folder, as in gaitlab).
 Runs on CUDA unless --cpu_only is given. Paths of gaitlab's demo that are
 not ported yet raise NotImplementedError: rendering (video output unless
---save_vid is passed, --mesh_render, --display, --save_obj), --onepass,
---precision other than float32, and --parallel.
+--save_vid is passed, --mesh_render, --display, --save_obj), --precision
+other than float32, and --parallel.
 
 Usage:
   python -m gaitlab_torch.cli.demo --vid_file clip.mp4 \
@@ -89,7 +91,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "frame folder); needs video output off "
                         "(--save_vid).")
     p.add_argument("--onepass", action="store_true",
-                   help="single-decode pipeline (not ported yet).")
+                   help="single-decode pipeline: detect, track, crop and "
+                        "run the model in one pass over the video "
+                        "(pipeline/stream.py); needs video output off "
+                        "(--save_vid).")
     p.add_argument("--precision", type=str, default=None,
                    choices=["high", "float32", "default"],
                    help="matmul precision; only float32 (TF32 off) is "
@@ -107,7 +112,6 @@ def check_ported(args) -> None:
         "--mesh_render": args.mesh_render,
         "--display": args.display,
         "--save_obj": args.save_obj,
-        "--onepass": args.onepass,
         f"--precision {args.precision}": args.precision not in (None,
                                                                 "float32"),
         f"--parallel {args.parallel}": args.parallel is not None,
@@ -122,13 +126,22 @@ def load_model(args, cfg):
     """GRNet (synthetic SMPL unless a model file is found) with random
     weights, or a reference GRNet checkpoint's weights, on the card (the CPU
     with --cpu_only)."""
+    return build_model(args.ckpt, args.smpl_model,
+                       device="cpu" if args.cpu_only else None)
+
+
+def build_model(ckpt: str = "", smpl_model=None, device=None,
+                use_gait_feat: bool = False):
+    """load_model's body, for the API too: `device` None is the card. With
+    the gait branch, a reference checkpoint fills the trunk and the
+    corrector keeps its random init (no reference checkpoint has one)."""
     from gaitlab_torch.body import smpl as body_smpl
     from gaitlab_torch.config import SMPL_DATA_DIR
     from gaitlab_torch.nn.grnet import GRNet
     from gaitlab_torch.weights.torch_import import load_grnet_ckpt
 
     smpl_params = None
-    smpl_path = args.smpl_model
+    smpl_path = smpl_model
     if smpl_path is None:
         cand = osp.join(SMPL_DATA_DIR, "SMPL_NEUTRAL.pkl")
         smpl_path = cand if osp.isfile(cand) else None
@@ -142,17 +155,17 @@ def load_model(args, cfg):
               "parameters (outputs are structurally valid, not meaningful).")
 
     model = GRNet.create(smpl_params=smpl_params, joint_mode="spin2",
-                         device="cpu" if args.cpu_only else None)
-    if args.ckpt and osp.isfile(args.ckpt):
-        missing, _, state = load_grnet_ckpt(model.module, args.ckpt)
+                         device=device, use_gait_feat=use_gait_feat)
+    if ckpt and osp.isfile(ckpt):
+        missing, _, state = load_grnet_ckpt(model.module, ckpt)
         if missing:
             print(f"WARNING: {len(missing)} model params not in checkpoint "
                   f"(e.g. {missing[:3]})")
         if state.get("performance") is not None:
             print(f"Performance of pretrained model on 3DPW: "
                   f"{state['performance']}")
-    elif args.ckpt:
-        raise FileNotFoundError(f"checkpoint not found: {args.ckpt}")
+    elif ckpt:
+        raise FileNotFoundError(f"checkpoint not found: {ckpt}")
     else:
         print("WARNING: --ckpt not given; running with random weights.")
     return model
@@ -278,6 +291,52 @@ def _runner_kwargs(args) -> dict:
     return {}
 
 
+def _save(args, grnet_results: dict, output_path: str) -> None:
+    """The pkl, named as the reference names it (a counter on repeats)."""
+    ckpt_base = (osp.basename(args.ckpt).split(".")[0] if args.ckpt
+                 else "grnet")
+    idx = sum(1 for f in os.listdir(output_path)
+              if ckpt_base in f and f.endswith(".pkl"))
+    pklname = f"{ckpt_base}{idx}.pkl" if idx else f"{ckpt_base}.pkl"
+    pklpath = osp.join(output_path, pklname)
+    print(f'Saving complete output results to "{pklpath}".')
+    # a plain pickle, which joblib.load (the reference's reader) reads
+    with open(pklpath, "wb") as f:
+        pickle.dump(grnet_results, f)
+
+
+def _report(n_frames: int, grnet_time: float, total_time: float) -> None:
+    print(f"VIBE FPS: {n_frames / (time.time() - grnet_time):.2f}")
+    t = time.time() - total_time
+    print(f"Total time spent: {t:.2f} seconds (including model loading "
+          f"time).")
+    print(f"Total FPS (including model loading time): {n_frames / t:.2f}.")
+
+
+def run_onepass(args, model, video_file, orig_width, orig_height,
+                total_time) -> dict:
+    """--onepass: one decode of the video for detection, SORT, crops and
+    the model (pipeline/stream.py)."""
+    from gaitlab_torch.pipeline import detect
+    from gaitlab_torch.pipeline import stream as stream_mod
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    runner = GRNetRunner(model, bbox_scale=1.0, **_runner_kwargs(args))
+    grnet_time = time.time()
+    res = stream_mod.run_video_onepass(
+        runner, video_file, detector=detect.get_detector(
+            args.detector, input_size=args.yolo_img_size,
+            batch=args.tracker_batch_size, device=model.device))
+    grnet_results = {
+        pid: _person_output(out, out["bboxes"], out["frames"], pid, args,
+                            model, orig_width, orig_height)
+        for pid, out in res.items()}
+    # frames per second: the sorted union of the tracks' frame ids
+    _report(len({int(f) for r in res.values() for f in r["frames"]}),
+            grnet_time, total_time)
+    return grnet_results
+
+
 def main(args):
     from gaitlab_torch.config import parse_args
     from gaitlab_torch.pipeline import video
@@ -302,7 +361,9 @@ def main(args):
     os.makedirs(output_path, exist_ok=True)
 
     model = load_model(args, cfg)  # before any decode: fail fast on no CUDA
-    stream = bool(args.stream) and not args.img_folder
+    onepass = (bool(args.onepass) and not args.img_folder
+               and not args.tracking_path)
+    stream = (bool(args.stream) or onepass) and not args.img_folder
     if args.img_folder:
         image_folder = args.img_folder
         import cv2
@@ -318,8 +379,14 @@ def main(args):
         image_folder, num_frames, img_shape = video.video_to_images(
             video_file, return_info=True)
         orig_height, orig_width = img_shape[:2]
+    print(f"Input video number of frames {num_frames}")
+    if onepass:
+        grnet_results = run_onepass(args, model, video_file, orig_width,
+                                    orig_height, total_time)
+        _save(args, grnet_results, output_path)
+        print("================= END =================")
+        return grnet_results
     try:
-        print(f"Input video number of frames {num_frames}")
         tracking_results, num_frames_list = run_tracking(
             args, image_folder, video_file=video_file if stream else None,
             device=model.device)
@@ -345,24 +412,8 @@ def main(args):
             grnet_results[person_id] = _person_output(
                 out, bboxes, frames, person_id, args, model, orig_width,
                 orig_height)
-        fps = len(num_frames_list) / (time.time() - grnet_time)
-        print(f"VIBE FPS: {fps:.2f}")
-        t = time.time() - total_time
-        print(f"Total time spent: {t:.2f} seconds (including model loading "
-              f"time).")
-        print(f"Total FPS (including model loading time): "
-              f"{len(num_frames_list) / t:.2f}.")
-
-        ckpt_base = (osp.basename(args.ckpt).split(".")[0] if args.ckpt
-                     else "grnet")
-        idx = sum(1 for f in os.listdir(output_path)
-                  if ckpt_base in f and f.endswith(".pkl"))
-        pklname = f"{ckpt_base}{idx}.pkl" if idx else f"{ckpt_base}.pkl"
-        pklpath = osp.join(output_path, pklname)
-        print(f'Saving complete output results to "{pklpath}".')
-        # a plain pickle, which joblib.load (the reference's reader) reads
-        with open(pklpath, "wb") as f:
-            pickle.dump(grnet_results, f)
+        _report(len(num_frames_list), grnet_time, total_time)
+        _save(args, grnet_results, output_path)
     finally:
         if not args.img_folder and image_folder:
             shutil.rmtree(image_folder)

@@ -207,9 +207,11 @@ def perspective_projection(points: Tensor, rotation: Tensor,
     points = torch.einsum("bij,bkj->bki", rotation, points)
     points = points + translation[:, None, :]
     projected = points / points[..., 2:3]
-    f = torch.as_tensor(focal_length, dtype=points.dtype,
-                        device=points.device).expand(points.shape[:1])
-    return projected[..., :2] * f[:, None, None] + camera_center[:, None, :]
+    f = focal_length  # a number stays a kernel argument (no copy to the card)
+    if isinstance(f, Tensor):
+        f = f.to(points.device, points.dtype).expand(points.shape[:1])
+        f = f[:, None, None]
+    return projected[..., :2] * f + camera_center[:, None, :]
 
 
 def projection(pred_joints: Tensor, pred_camera: Tensor) -> Tensor:

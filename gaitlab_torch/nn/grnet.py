@@ -1,14 +1,17 @@
-"""GRNet: HRNet backbone + PARE head + SMPL regression.
+"""GRNet: HRNet backbone + PARE head [+ gait-feature corrector] + SMPL
+regression.
 
-Counterpart of gaitlab/nn/grnet.py without the gait branch. `GRNetCore`
-is the neural trunk (an nn.Module whose state_dict keys are the reference
-GRNet's 'backbone.*' / 'head.*' keys); `vp_regress` is the SMPL regression
-and output assembly; `GRNet` bundles the trunk, the SMPL tensors and the
-device.
+Counterpart of gaitlab/nn/grnet.py. `GRNetCore` is the neural trunk (an
+nn.Module whose state_dict keys are the reference GRNet's 'backbone.*' /
+'head.*' keys, and 'pfeat_corrector.*' for the gait branch, named as
+gaitlab names it); `vp_regress` is the SMPL regression and output
+assembly; `GRNet` bundles the trunk, the SMPL tensors and the device.
 
 Output contract:
   [{'theta': (B,T,85), 'verts': (B,T,6890,3), 'kp_2d': (B,T,J,2),
     'kp_3d': (B,T,J,3), 'rotmat': (B,T,24,3,3)}]
+with the gait branch also 'pred_avg' (1,3), 'pred_phase' (1,N,4) and
+'pred_cparam' (N,3).
 """
 
 from __future__ import annotations
@@ -21,31 +24,63 @@ from torch import nn
 
 from gaitlab_torch.body import smpl as body_smpl
 from gaitlab_torch.core import geometry
-from gaitlab_torch.device import float32_math, resolve_device
+from gaitlab_torch.device import float32_math, resolve_device, upload
+from gaitlab_torch.nn.gait import FeatCorrector, camera_reparam
 from gaitlab_torch.nn.hrnet import HRNetCfg, PoseHighResolutionNet
 from gaitlab_torch.nn.pare_head import PareHead
 
 
 class GRNetCore(nn.Module):
-    """HRNet-W32 backbone + PARE head. The width, depth and head-feature
-    knobs exist so that tests can build small models."""
+    """HRNet-W32 backbone + PARE head, and with `use_gait_feat` the
+    gait-feature corrector between the head's pooling and its regressors.
+    The width, depth and head-feature knobs exist so that tests can build
+    small models; the featcorr_* knobs are gaitlab's MODEL.FEAT_CORR.*."""
 
     def __init__(self, num_joints: int = 24, num_input_features: int = 480,
                  num_features_pare: int = 128, num_features_smpl: int = 64,
                  backbone_width: int = 32, backbone_modules: tuple = (1, 4, 3),
-                 backbone_blocks: int = 4, use_gait_feat: bool = False):
+                 backbone_blocks: int = 4, use_gait_feat: bool = False,
+                 featcorr_avg_dim: int = 3, featcorr_estim_phase: bool = True,
+                 featcorr_num_layers: int = 1, featcorr_h_size: int = 1024,
+                 featcorr_num_heads: int = 4, featcorr_use_jwff: bool = False):
         super().__init__()
-        if use_gait_feat:
-            raise NotImplementedError(
-                "the gait branch (use_gait_feat=True) is not ported yet")
+        self.use_gait_feat = use_gait_feat
         self.backbone = PoseHighResolutionNet(
             HRNetCfg.w(backbone_width, backbone_modules, backbone_blocks))
         self.head = PareHead(num_joints, num_input_features,
                              num_features_pare, num_features_smpl)
+        if use_gait_feat:
+            self.pfeat_corrector = FeatCorrector(
+                num_joints, num_features_pare, featcorr_avg_dim,
+                featcorr_estim_phase, featcorr_num_layers, featcorr_h_size,
+                featcorr_num_heads, featcorr_use_jwff)
 
-    def forward(self, images: torch.Tensor) -> dict:
-        """images: (N, 3, 224, 224) normalized crops."""
-        return self.head(self.backbone(images))
+    def forward(self, images: torch.Tensor,
+                bbox: Optional[torch.Tensor] = None,
+                cimg: Optional[torch.Tensor] = None,
+                n_valid: Optional[int] = None) -> dict:
+        """images: (N, 3, 224, 224) normalized crops of one track. bbox (N,4)
+        and cimg (N,2) feed the gait branch; n_valid (an int) says how many
+        leading frames are real when the runner pads the track to a bucket:
+        padded frames then stay out of the gait GRU and attention."""
+        features = self.backbone(images)
+        if not self.use_gait_feat:
+            return self.head(features)
+        if bbox is None or cimg is None:
+            raise ValueError("the gait branch needs bbox and cimg")
+        feats = self.head.feature_extractor(features)
+        patt = self.head.predict(feats["point_local_feat"],
+                                 feats["cam_shape_feats"])
+        cparams = camera_reparam(patt["pred_cam"], bbox, cimg)
+        corrected, pred_avg, pred_phase = self.pfeat_corrector(
+            feats["point_local_feat"][None], cparams[None],
+            None if n_valid is None else [int(n_valid)])
+        out = self.head.predict(corrected[0], feats["cam_shape_feats"])
+        out["pred_segm_mask"] = feats["pred_segm_mask"]
+        out["pred_avg"] = pred_avg
+        out["pred_phase"] = pred_phase
+        out["pred_cparam"] = cparams
+        return out
 
 
 def vp_regress(smpl_params: body_smpl.SMPLParams, patt_output: dict,
@@ -73,13 +108,17 @@ def vp_regress(smpl_params: body_smpl.SMPLParams, patt_output: dict,
 
     theta = torch.cat([patt_output["pred_cam"], pose,
                        patt_output["pred_shape"]], dim=1)
-    return [{
+    out = {
         "theta": theta.reshape(batch_size, seqlen, -1),
         "verts": smpl_out["smpl_vertices"].reshape(batch_size, seqlen, -1, 3),
         "kp_2d": smpl_out["smpl_joints2d"].reshape(batch_size, seqlen, -1, 2),
         "kp_3d": joints3d.reshape(batch_size, seqlen, -1, 3),
         "rotmat": pred_rotmat.reshape(batch_size, seqlen, -1, 3, 3),
-    }]
+    }
+    for k in ("pred_avg", "pred_phase", "pred_cparam"):  # gait branch
+        if k in patt_output:
+            out[k] = patt_output[k]
+    return [out]
 
 
 @dataclass
@@ -109,9 +148,13 @@ class GRNet:
                      joint_mode=joint_mode)
 
     def forward(self, images: torch.Tensor,
-                J_regressor: Optional[torch.Tensor] = None) -> list[dict]:
+                J_regressor: Optional[torch.Tensor] = None,
+                bbox=None, cimg=None, n_valid: Optional[int] = None
+                ) -> list[dict]:
         """images: (B,T,3,H,W) or (T,3,H,W) crops, or NHWC (N,H,W,3), on the
-        model's device. Runs in float32 with TF32 off."""
+        model's device. Runs in float32 with TF32 off. bbox (N,4) [cx,cy,w,h]
+        and cimg (N,2) image centres (arrays or tensors) feed the gait
+        branch; n_valid marks the real frames of a padded track."""
         if images.dim() == 5:  # (B,T,3,H,W)
             b = images.shape[0]
             x = images.reshape((-1,) + tuple(images.shape[2:]))
@@ -121,8 +164,15 @@ class GRNet:
             b, x = 1, images.permute(0, 3, 1, 2)
         else:
             raise ValueError(f"Wrong input rank: {tuple(images.shape)}")
+        kw = {}
+        if self.module.use_gait_feat:
+            kw = {k: upload(torch.as_tensor(v, dtype=torch.float32),
+                            self.device)
+                  for k, v in (("bbox", bbox), ("cimg", cimg))
+                  if v is not None}
+            kw["n_valid"] = n_valid
         with float32_math(), torch.inference_mode():
-            patt = self.module(x.contiguous())
+            patt = self.module(x.contiguous(), **kw)
             return vp_regress(self.smpl, patt, batch_size=b,
                               J_regressor=J_regressor,
                               joint_mode=self.joint_mode)

@@ -38,6 +38,27 @@ class LocallyConnected2d(nn.Module):
         return torch.einsum("nji,oij->njo", x, self.weight[0, :, :, :, 0, 0])
 
 
+class LocallyConnected(nn.Module):
+    """Per-token unshared linear map on token-major features (gaitlab's
+    LocallyConnected): (..., J, C_in) -> (..., J, C_out).
+
+    The weight keeps gaitlab's layout (J, C_in, C_out), the bias (J, C_out):
+    no reference checkpoint carries these layers (they belong to the gait
+    branch), so the layout is the one the converter reads."""
+
+    def __init__(self, num_tokens: int, in_features: int, out_features: int,
+                 bias: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.randn(num_tokens, in_features, out_features))
+        self.bias = (nn.Parameter(torch.randn(num_tokens, out_features))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.einsum("...jc,jco->...jo", x, self.weight)
+        return out if self.bias is None else out + self.bias
+
+
 def keypoint_attention(features: torch.Tensor,
                        heatmaps: torch.Tensor) -> torch.Tensor:
     """Softmax attention pooling (reference keypoint_attention.py:34-56).

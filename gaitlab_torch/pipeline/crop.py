@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gaitlab_torch.device import constant, upload
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -74,7 +76,7 @@ def _axis_samples(dst_size: int, inv_scale: np.ndarray, offset: np.ndarray,
 def _gather_lerp(x: torch.Tensor, tables, dim: int) -> torch.Tensor:
     """Bilinear tap along `dim` (1 = rows, 2 = columns) of x (B,H,W,C) with
     a zero border."""
-    lo, frac, vlo, vhi = (torch.from_numpy(t).to(x.device) for t in tables)
+    lo, frac, vlo, vhi = (upload(t, x.device) for t in tables)
     hi = (lo + 1).clamp_max(x.shape[dim] - 1)
     shape = [x.shape[0], 1, 1, 1]
     shape[dim] = lo.shape[1]
@@ -102,7 +104,7 @@ def crop_and_normalize(frames, bboxes: np.ndarray, scale: float = 1.0,
     if not isinstance(frames, torch.Tensor):
         frames = torch.from_numpy(np.ascontiguousarray(frames))
     if device is not None:
-        frames = frames.to(device)
+        frames = upload(frames, device)
     h, w = frames.shape[1:3]
     bboxes = np.asarray(bboxes, np.float64)
     # the exact forward affine per box, inverted in double as cv2 does
@@ -118,16 +120,16 @@ def crop_and_normalize(frames, bboxes: np.ndarray, scale: float = 1.0,
         # cv2.warpAffine emits uint8
         out = torch.round(out.clamp(0.0, 255.0))
     if normalize:
-        mean = torch.tensor(IMAGENET_MEAN, device=out.device) * 255.0
-        std = torch.tensor(IMAGENET_STD, device=out.device) * 255.0
+        mean = constant(IMAGENET_MEAN, "float32", out.device) * 255.0
+        std = constant(IMAGENET_STD, "float32", out.device) * 255.0
         out = (out - mean) / std
     return out
 
 
 def normalize_image(img: torch.Tensor) -> torch.Tensor:
     """uint8 RGB (...,3) -> float ImageNet-normalized (ToTensor + Normalize)."""
-    mean = torch.tensor(IMAGENET_MEAN, device=img.device)
-    std = torch.tensor(IMAGENET_STD, device=img.device)
+    mean = constant(IMAGENET_MEAN, "float32", img.device)
+    std = constant(IMAGENET_STD, "float32", img.device)
     return (img.float() / 255.0 - mean) / std
 
 

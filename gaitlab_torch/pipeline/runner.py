@@ -8,24 +8,38 @@ frames: only 224^2 crops cross). The model runs at a small set of batch
 sizes ("buckets"), with the tail padded by repeating its last crop, so
 that every forward has one of a few shapes. The weights stay on the
 model's device.
+
+Forwards go through a `ForwardStream` session (`open_stream`): crop chunks
+are fed as they come, a forward runs on the session's worker thread
+whenever a largest bucket has filled, and the outputs stay on the device
+until `finish` reads them back once. Host data crosses to the card as
+asynchronous copies from pinned memory (`device.upload`). With the gait
+branch each forward also takes the chunk's bbox and image-centre rows and
+its real-frame count (n_valid); the track-level gait estimate (pred_avg)
+of each forward is then averaged with weights equal to its real frames,
+and pred_phase is concatenated.
 """
 
 from __future__ import annotations
 
 import bisect
 import os
+import queue
+import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from gaitlab_torch.device import upload
 from gaitlab_torch.nn.grnet import GRNet
 from gaitlab_torch.pipeline import crop as crop_mod
 from gaitlab_torch.pipeline import video
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 450)
 OUTPUT_KEYS = ("theta", "verts", "kp_2d", "kp_3d")
+GAIT_KEYS = ("pred_avg", "pred_phase")
 
 
 @dataclass
@@ -64,41 +78,60 @@ class GRNetRunner:
 
     # -- model forward at bucket sizes -------------------------------------
 
-    def _forward_bucket(self, crops: torch.Tensor) -> dict:
-        """One forward of m <= max-bucket normalized NHWC crops, padded to
-        the bucket size; outputs sliced back to m frames, on the device."""
+    def _forward_bucket(self, crops: torch.Tensor, bbox=None, cimg=None
+                        ) -> dict:
+        """One forward of m <= max-bucket normalized NHWC crops (and, for
+        the gait branch, their bbox/cimg rows), padded to the bucket size by
+        repeating the last row; per-frame outputs sliced back to m frames,
+        on the device. The gait branch is told that m frames are real."""
         m = crops.shape[0]
         b = self._bucket(m)
         if b > m:
             crops = torch.cat([crops, crops[-1:].expand(b - m, -1, -1, -1)])
-        out = self.model.forward(crops)[0]
-        return {k: out[k][0, :m] for k in OUTPUT_KEYS}
+        kw = {}
+        if self.model.module.use_gait_feat:
+            kw = dict(bbox=_pad_rows(bbox, b), cimg=_pad_rows(cimg, b),
+                      n_valid=m)
+        out = self.model.forward(crops, **kw)[0]
+        res = {k: out[k][0, :m] for k in OUTPUT_KEYS + ("pred_phase",)
+               if k in out}
+        if "pred_avg" in out:
+            res["pred_avg"] = out["pred_avg"]  # (1,3): one per forward
+        return res
 
-    def _forward_stream(self, crop_chunks) -> dict:
-        """Crop chunks -> forwards of max-bucket slices as they fill, then
-        the tail; one readback of every output at the end."""
-        max_b = self.buckets[-1]
-        outs, pending, n_pending = [], [], 0
+    def open_stream(self) -> "ForwardStream":
+        """An incremental forward session: feed() crop chunks (and, for
+        the gait branch, their bbox/cimg rows) as they come, finish()
+        once."""
+        return ForwardStream(self)
+
+    def _forward_stream(self, crop_chunks, bbox=None, cimg=None) -> dict:
+        """Feed each crop chunk with its slice of the track's rows."""
+        session = self.open_stream()
+        s = 0
         for chunk in crop_chunks:
-            pending.append(chunk)
-            n_pending += chunk.shape[0]
-            while n_pending >= max_b:
-                cat = torch.cat(pending)
-                outs.append(self._forward_bucket(cat[:max_b]))
-                pending, n_pending = [cat[max_b:]], n_pending - max_b
-        if n_pending:
-            outs.append(self._forward_bucket(torch.cat(pending)))
-        if not outs:
-            return {}
-        return {k: torch.cat([o[k] for o in outs]).cpu().numpy()
-                for k in OUTPUT_KEYS}
+            e = s + chunk.shape[0]
+            session.feed(chunk, bbox=None if bbox is None else bbox[s:e],
+                         cimg=None if cimg is None else cimg[s:e])
+            s = e
+        return session.finish()
 
-    def forward_crops(self, crops: torch.Tensor) -> dict:
+    def forward_crops(self, crops, bbox=None, cimg=None) -> dict:
         """Normalized NHWC crops (N,224,224,3) -> output dict of numpy
-        arrays, run at bucket sizes."""
-        return self._forward_stream([crops.to(self.model.device)])
+        arrays, run at bucket sizes. bbox/cimg (N,4)/(N,2) feed the gait
+        branch when the model has one."""
+        return self._forward_stream([crops], bbox=bbox, cimg=cimg)
 
     # -- crops ---------------------------------------------------------------
+
+    def _frame_hw(self, frames_or_paths) -> tuple[int, int]:
+        """(H, W) of a track's frames: an array, a chunked frame source or
+        image paths (the first image is read)."""
+        if isinstance(frames_or_paths, np.ndarray):
+            return tuple(frames_or_paths.shape[1:3])
+        if hasattr(frames_or_paths, "image_hw"):
+            return tuple(frames_or_paths.image_hw)
+        return tuple(video.load_frames(list(frames_or_paths)[:1]).shape[1:3])
 
     def _crop_stream(self, frames_or_paths, bboxes: np.ndarray,
                      scale: Optional[float] = None):
@@ -110,36 +143,30 @@ class GRNetRunner:
         if isinstance(frames_or_paths, np.ndarray):
             chunks = (frames_or_paths[s:s + self.ingest_chunk]
                       for s in range(0, n, self.ingest_chunk))
-            frame_hw = frames_or_paths.shape[1] * frames_or_paths.shape[2]
         elif hasattr(frames_or_paths, "image_hw"):
             chunks = iter(frames_or_paths)
-            hh, ww = frames_or_paths.image_hw
-            frame_hw = hh * ww
         else:
-            paths = list(frames_or_paths)
+            frames_or_paths = paths = list(frames_or_paths)
             chunks = (video.load_frames(paths[s:s + self.ingest_chunk])
                       for s in range(0, n, self.ingest_chunk))
-            hh, ww = video.load_frames(paths[:1]).shape[1:3]
-            frame_hw = hh * ww
+        hh, ww = self._frame_hw(frames_or_paths)
+        frame_hw = hh * ww
         crop_on = self.crop_on
         if crop_on == "auto":
             crop_on = ("device" if frame_hw <= 2 * self.crop_size ** 2
                        else "host")
         device = self.model.device
         # a reader with reuse_buffers=True hands out views that its next
-        # chunk rewrites: the host crop reads them at once, but the device
-        # crop gets a copy, so that no tensor (nor a later asynchronous
-        # upload) aliases the ring
-        ring = bool(getattr(frames_or_paths, "reuse_buffers", False))
+        # chunk rewrites: both crops have read a chunk before the next is
+        # decoded (the upload to the card copies it into pinned memory at
+        # once, and the CPU crop gathers it into new tensors)
         s = 0
         for chunk in chunks:
             e = s + len(chunk)
             if crop_on == "host":
-                yield crop_mod.normalize_image(torch.from_numpy(
-                    self._host_crop(chunk, bboxes[s:e], scale)).to(device))
+                yield crop_mod.normalize_image(upload(
+                    self._host_crop(chunk, bboxes[s:e], scale), device))
             else:
-                if ring:
-                    chunk = np.array(chunk)
                 yield crop_mod.crop_and_normalize(
                     chunk, bboxes[s:e], scale=scale,
                     crop_size=self.crop_size, device=device)
@@ -172,16 +199,169 @@ class GRNetRunner:
 
         Returns numpy {'pred_cam' (N,3), 'verts' (N,6890,3), 'pose' (N,72),
         'betas' (N,10), 'joints3d' (N,J,3), 'joints2d' (N,J,2) normalized
-        crop coords}."""
+        crop coords}, and with the gait branch 'pred_avg' (3,) and
+        'pred_phase' (N,4); the branch gets each frame's bbox and the
+        image centre."""
+        bb = ci = None
+        if self.model.module.use_gait_feat:
+            h, w = self._frame_hw(frames_or_paths)
+            bb = np.asarray(bboxes, np.float32)
+            ci = np.full((len(bb), 2), [w * 0.5, h * 0.5], np.float32)
         out = self._forward_stream(
-            self._crop_stream(frames_or_paths, bboxes, scale))
-        if not out:
+            self._crop_stream(frames_or_paths, bboxes, scale),
+            bbox=bb, cimg=ci)
+        return track_outputs(out)
+
+
+def track_outputs(out: dict) -> dict:
+    """Forward outputs (theta, verts, kp_3d, ...) -> run_track's keys."""
+    if not out:
+        return {}
+    res = {"pred_cam": out["theta"][:, :3], "pose": out["theta"][:, 3:75],
+           "betas": out["theta"][:, 75:], "verts": out["verts"],
+           "joints3d": out["kp_3d"], "joints2d": out["kp_2d"]}
+    res.update({k: out[k] for k in GAIT_KEYS if k in out})
+    return res
+
+
+def _pad_rows(rows: torch.Tensor, b: int) -> torch.Tensor:
+    return torch.cat([rows, rows[-1:].expand(b - len(rows), -1)])
+
+
+class ForwardStream:
+    """Incremental bucketed-forward session (GRNetRunner.open_stream).
+
+    feed() takes crop chunks, as host uint8 crops (normalized on the
+    device) or as normalized float crops (host or device), and for the gait
+    branch the aligned bbox/cimg rows. Whenever a largest bucket has
+    gathered, its forward goes to one worker thread, which copies the host
+    chunks to the device (`device.upload`: pinned, asynchronous), normalizes
+    and launches; feed() launches nothing. A forward launches a few
+    thousand kernels, more than the card's launch queue holds, so the
+    launching thread waits for the card through most of each forward: on
+    the worker, that wait overlaps the caller's host work (decode,
+    detection, crops). A fed chunk is read by the worker later, so the
+    caller must not write to it afterwards. finish() launches the tail,
+    waits for the worker, reads every output back once and merges. An
+    error of a forward raises at the next feed() or at finish()."""
+
+    def __init__(self, runner: GRNetRunner):
+        self.runner = runner
+        self.device = runner.model.device
+        self.gait = runner.model.module.use_gait_feat
+        self.max_b = runner.buckets[-1]
+        self._buf: list = []  # chunks (or their tails) not yet dispatched
+        self._rows = {"bbox": [], "cimg": []}  # host rows not yet dispatched
+        self._buffered = 0
+        self._outs: list = []
+        self._lengths: list = []
+        self._err: list = []
+        self._queue = None
+        self._thread = None
+        self._done = False
+
+    def _to_device(self, chunk) -> torch.Tensor:
+        if isinstance(chunk, np.ndarray) and chunk.dtype == np.uint8:
+            return crop_mod.normalize_image(upload(chunk, self.device))
+        return upload(chunk, self.device)
+
+    def _work(self) -> None:
+        """The worker: one forward per queued bucket, in order, until None;
+        after an error it skips the rest."""
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            if self._err:
+                continue
+            try:
+                self._outs.append(self._forward(*item))
+            except BaseException as e:  # raised at the next feed/finish
+                self._err.append(e)
+
+    def _forward(self, pieces: list, rows: dict) -> dict:
+        """One bucket's forward from its chunk slices and host rows."""
+        crops = torch.cat([self._to_device(p) for p in pieces])
+        rows = {k: upload(v, self.device) for k, v in rows.items()}
+        return self.runner._forward_bucket(crops, **rows)
+
+    def _check_err(self) -> None:
+        if self._err:
+            raise self._err[0]
+
+    def _take(self, m: int) -> list:
+        """The first m buffered frames, as slices of the fed chunks."""
+        pieces, n = [], 0
+        while n < m:
+            chunk = self._buf.pop(0)
+            k = min(len(chunk), m - n)
+            pieces.append(chunk[:k])
+            if k < len(chunk):
+                self._buf.insert(0, chunk[k:])
+            n += k
+        self._buffered -= m
+        return pieces
+
+    def _take_rows(self, m: int) -> dict:
+        """The next m bbox and cimg rows (host)."""
+        rows = {}
+        for k, bufs in self._rows.items():
+            cat = np.concatenate(bufs) if bufs else np.zeros((0, 0), np.float32)
+            if len(cat) < m:
+                raise ValueError(f"the gait branch needs a bbox/cimg row for "
+                                 f"each of {m} frames, got {len(cat)} {k}")
+            self._rows[k] = [cat[m:]] if len(cat) > m else []
+            rows[k] = cat[:m]
+        return rows
+
+    def _dispatch(self, m: int) -> None:
+        self._check_err()
+        rows = self._take_rows(m) if self.gait else {}
+        if self._thread is None:
+            self._queue = queue.Queue(maxsize=2)
+            self._thread = threading.Thread(target=self._work, daemon=True)
+            self._thread.start()
+        self._queue.put((self._take(m), rows))
+        self._lengths.append(m)
+
+    def feed(self, chunk, bbox=None, cimg=None) -> None:
+        """Add a crop chunk (and, for the gait branch, its rows)."""
+        if self._done:
+            raise RuntimeError("feed() after finish()")
+        self._check_err()
+        self._buf.append(chunk)
+        self._buffered += chunk.shape[0]
+        for k, rows in (("bbox", bbox), ("cimg", cimg)):
+            if rows is not None:
+                self._rows[k].append(np.asarray(rows, np.float32))
+        while self._buffered >= self.max_b:
+            self._dispatch(self.max_b)
+
+    def finish(self) -> dict:
+        """Launch the tail, wait for the worker, read the outputs back once,
+        merge them."""
+        if self._done:
+            raise RuntimeError("finish() called twice")
+        self._done = True
+        if self._buffered:
+            self._dispatch(self._buffered)
+        if self._thread is not None:
+            self._queue.put(None)
+            self._thread.join()
+            self._thread = None
+        self._check_err()
+        if not self._outs:  # no frame fed
             return {}
-        return {
-            "pred_cam": out["theta"][:, :3],
-            "pose": out["theta"][:, 3:75],
-            "betas": out["theta"][:, 75:],
-            "verts": out["verts"],
-            "joints3d": out["kp_3d"],
-            "joints2d": out["kp_2d"],
-        }
+        fetched = [{k: v.cpu().numpy() for k, v in out.items()}
+                   for out in self._outs]
+        self._outs = []
+        merged = {}
+        for k in fetched[0]:
+            if k == "pred_avg":
+                # a track-level estimate per forward, weighted by its real
+                # frames (the tail forward may be mostly padding)
+                merged[k] = np.average([o[k][0] for o in fetched], axis=0,
+                                       weights=self._lengths)
+            else:
+                merged[k] = np.concatenate([o[k] for o in fetched])
+        return merged

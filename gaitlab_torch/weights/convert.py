@@ -16,6 +16,19 @@ jax or gaitlab: the variables arrive as nested mappings of arrays
 gaitlab's module names are the reference's torch paths with '.' written
 '_' (layer1_0, fuse_layers_0_1_0, upsample_stage_2_1, ...). Its YOLO
 module names are the port's own (conv{i}.conv, conv{i}.bn, conv{i}).
+
+The gait branch ('pfeat_corrector') has no reference checkpoint; the
+port's modules carry gaitlab's names there, and `gait_state_dict_from_flax`
+maps it leaf by leaf:
+  Dense        kernel (I,O)            -> weight (O,I)
+  attention    query/key/value kernel (I,H,D) -> weight (H*D,I), bias (H,D)
+               -> (H*D); out kernel (H,D,O) -> weight (O,H*D)
+  LayerNorm    scale                   -> weight
+  token LC     weight (J,I,O), bias (J,O) as they are
+  GRU          l{k}_{fwd|bwd}/{ir,iz,in,hr,hz,hn} -> weight_ih_l{k}[_reverse]
+               = [ir|iz|in]^T, weight_hh = [hr|hz|hn]^T, bias_ih =
+               [b_ir|b_iz|b_in], bias_hh = [0|0|b_hn] (Flax has no b_hr,
+               b_hz)
 """
 
 from __future__ import annotations
@@ -69,10 +82,12 @@ def _leaves(tree: Mapping, path=()):
             yield path + (k,), v
 
 
-def _state_dict(variables: Mapping, module_path) -> dict:
+def _state_dict(variables: Mapping, module_path, skip=()) -> dict:
     sd = {}
     for coll in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(coll, {})):
+            if path[0] in skip:
+                continue
             *mods, leaf = path
             module = module_path(mods)
             v = _convert_leaf(mods[-1], leaf, np.asarray(value, np.float32))
@@ -85,7 +100,84 @@ def _state_dict(variables: Mapping, module_path) -> dict:
 
 def state_dict_from_flax(variables: Mapping) -> dict:
     """gaitlab GRNetCore (or sub-module) variables -> torch state_dict."""
-    return _state_dict(variables, torch_module_path)
+    sd = _state_dict(variables, torch_module_path, skip=("pfeat_corrector",))
+    gait = variables.get("params", {}).get("pfeat_corrector")
+    if gait is not None:
+        sd.update({f"pfeat_corrector.{k}": v for k, v in
+                   gait_state_dict_from_flax(gait)[0].items()})
+    return sd
+
+
+_GRU_CELL = re.compile(r"^l(\d+)_(fwd|bwd)$")
+_ATTENTION = ("temporal", "spatial")
+
+
+def _gru_leaves(rnn: Mapping, prefix: tuple, sd: dict, sources: dict):
+    """Pack gaitlab's GRU cells (one Dense per gate) into nn.GRU tensors."""
+    for cell_name, cell in rnn.items():
+        m = _GRU_CELL.match(cell_name)
+        if m is None:
+            raise KeyError(f"unrecognised GRU cell {cell_name!r}")
+        sfx = f"_l{m.group(1)}" + ("_reverse" if m.group(2) == "bwd" else "")
+        kernel = {g: np.asarray(cell[g]["kernel"], np.float32).T
+                  for g in ("ir", "iz", "in", "hr", "hz", "hn")}
+        b_hn = np.asarray(cell["hn"]["bias"], np.float32)
+        packed = {
+            f"weight_ih{sfx}": np.concatenate(
+                [kernel["ir"], kernel["iz"], kernel["in"]]),
+            f"weight_hh{sfx}": np.concatenate(
+                [kernel["hr"], kernel["hz"], kernel["hn"]]),
+            f"bias_ih{sfx}": np.concatenate(
+                [np.asarray(cell[g]["bias"], np.float32)
+                 for g in ("ir", "iz", "in")]),
+            f"bias_hh{sfx}": np.concatenate(
+                [np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn]),
+        }
+        src = {f"weight_ih{sfx}": [(g, "kernel") for g in ("ir", "iz", "in")],
+               f"weight_hh{sfx}": [(g, "kernel") for g in ("hr", "hz", "hn")],
+               f"bias_ih{sfx}": [(g, "bias") for g in ("ir", "iz", "in")],
+               f"bias_hh{sfx}": [("hn", "bias")]}
+        for key, v in packed.items():
+            name = ".".join(prefix + (key,))
+            sd[name] = torch.from_numpy(np.ascontiguousarray(v))
+            sources[name] = [prefix + (cell_name,) + s for s in src[key]]
+
+
+def gait_state_dict_from_flax(params: Mapping) -> tuple[dict, dict]:
+    """gaitlab's 'pfeat_corrector' params -> (the port's FeatCorrector
+    state_dict, and for each of its keys the gaitlab leaf paths it was
+    made from)."""
+    sd, sources = {}, {}
+    rnns = []
+    for path, value in _leaves(params):
+        *mods, leaf = path
+        if "rnn" in mods:
+            i = mods.index("rnn")
+            if tuple(mods[:i + 1]) not in rnns:
+                rnns.append(tuple(mods[:i + 1]))
+            continue
+        v = np.asarray(value, np.float32)
+        parent = mods[-2] if len(mods) > 1 else ""
+        if leaf == "kernel":
+            if parent in _ATTENTION and mods[-1] == "out":
+                v = v.reshape(-1, v.shape[-1]).T     # (H,D,O) -> (O,H*D)
+            elif parent in _ATTENTION:
+                v = v.reshape(v.shape[0], -1).T      # (I,H,D) -> (H*D,I)
+            else:
+                v = v.T                              # (I,O) -> (O,I)
+        elif leaf == "bias" and parent in _ATTENTION:
+            v = v.reshape(-1)
+        elif leaf not in ("bias", "scale", "weight"):
+            raise KeyError(f"unrecognised leaf {'/'.join(path)}")
+        name = ".".join(mods + [_LEAF[leaf]])
+        sd[name] = torch.from_numpy(np.ascontiguousarray(v))
+        sources[name] = [tuple(path)]
+    for prefix in rnns:
+        sub = params
+        for k in prefix:
+            sub = sub[k]
+        _gru_leaves(sub, prefix, sd, sources)
+    return sd, sources
 
 
 def yolo_state_dict_from_flax(variables: Mapping) -> dict:

@@ -3,6 +3,8 @@
 
     python3 scripts/torch_kernel_study.py ab TREE [TREE ...]
     python3 scripts/torch_kernel_study.py ablate
+    python3 scripts/torch_kernel_study.py gait
+    python3 scripts/torch_kernel_study.py queue
 
 `ab` times keypoint_attention_fused (B1) and blendshapes (B2) at B = 128,
 the main path's shapes, from the gaitlab_torch package of each TREE in
@@ -13,6 +15,24 @@ variants of this checkout's blendshapes kernel with one part taken out
 show where its time goes; a variant's output is not checked. Times are
 chip_smoke.py's: median device time of one call, CUDA events, L2 flushed
 before each call. Each line of output is one JSON object.
+
+`gait` studies MAX-GRNet's gait corrector at full width (random weights
+from seed 0, random crops): at buckets 256 and 450 the model with and
+without the branch, with the card drained before the corrector (a
+synchronising pre-hook, as any host-to-card copy from pageable memory
+inside the forward would be) and the corrector alone (CUDA events, median
+of 5); a profile of the corrector alone; the corrector alone on the same
+features on the card and on the CPU; and a 900-frame track cropped on
+the host and fed to a ForwardStream 32 frames at a time, as the port runs
+it (forwards on the session's worker thread, pinned asynchronous copies),
+with the forwards on the caller's thread, and with pageable `.to()`
+copies (host ms of the crops, the feeds and finish(), wall). Its profile
+lines are plain text.
+
+`queue` measures how many kernel launches the host can queue ahead of the
+card (tiny launches behind a sleep kernel of about 200 ms) and how long
+GRNet's and MAX-GRNet's forwards at bucket 450 keep the launching thread
+(host ms of the call, and the ms the card still runs after it returns).
 """
 
 from __future__ import annotations
@@ -23,6 +43,7 @@ import os
 import os.path as osp
 import subprocess
 import sys
+import time
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 B = 128
@@ -145,6 +166,197 @@ def ablate() -> None:
                           "pose": p, "b2_ms": ms}), flush=True)
 
 
+def gait() -> None:
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import card_line, profiled
+    from gaitlab_torch.device import float32_math
+    from gaitlab_torch.nn.gait import camera_reparam
+    from gaitlab_torch.nn.grnet import GRNet
+    from gaitlab_torch.pipeline import runner as runner_mod
+
+    card = card_line()
+
+    def emit(**row):
+        print(json.dumps({"card": card, **row}), flush=True)
+
+    def events_ms(fn, reps=5):
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
+
+    plain = GRNet.create(seed=0)
+    model = GRNet.create(seed=0, use_gait_feat=True)
+    core = model.module
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    crops = torch.randn(450, 224, 224, 3, device="cuda", generator=gen)
+    rng = np.random.default_rng(0)
+    bbox = np.column_stack([rng.uniform(100, 220, (450, 2)),
+                            np.full((450, 2), 120.0)]).astype(np.float32)
+    cimg = np.tile(np.float32([160.0, 120.0]), (450, 1))
+
+    def features(x, bb, ci):
+        feats = core.head.feature_extractor(
+            core.backbone(x.permute(0, 3, 1, 2).contiguous()))
+        cam = core.head.predict(feats["point_local_feat"],
+                                feats["cam_shape_feats"])["pred_cam"]
+        return feats["point_local_feat"], camera_reparam(cam, bb, ci)
+
+    correctors = {}
+    for b in (256, 450):
+        x, bb, ci = crops[:b], bbox[:b], cimg[:b]
+        ms = {"plain": events_ms(lambda: plain.forward(x)),
+              "gait": events_ms(lambda: model.forward(
+                  x, bbox=bb, cimg=ci, n_valid=b))}
+        drain = core.pfeat_corrector.register_forward_pre_hook(
+            lambda m, a: torch.cuda.synchronize())
+        try:
+            ms["drained"] = events_ms(lambda: model.forward(
+                x, bbox=bb, cimg=ci, n_valid=b))
+        finally:
+            drain.remove()
+        with float32_math(), torch.inference_mode():
+            feats, cp = features(x, torch.from_numpy(bb).cuda(),
+                                 torch.from_numpy(ci).cuda())
+
+            def corrector(feats=feats, cp=cp, b=b):
+                core.pfeat_corrector(feats[None], cp[None], [b])
+
+            ms["corrector"] = events_ms(corrector)
+        correctors[b] = corrector
+        emit(study="gait_loop", bucket=b, **{f"{k}_ms": v
+                                              for k, v in ms.items()})
+    with float32_math(), torch.inference_mode():
+        profiled("the corrector alone at bucket 256", correctors[256], 6)
+    del correctors
+
+    # the corrector alone on the same features, card against CPU
+    n = 32
+    cpu_corr = GRNet.create(seed=0, device="cpu",
+                            use_gait_feat=True).module.pfeat_corrector
+    cpu_corr.load_state_dict({k: v.cpu() for k, v in
+                              core.pfeat_corrector.state_dict().items()})
+    with float32_math(), torch.inference_mode():
+        feats, cp = features(crops[:n], torch.from_numpy(bbox[:n]).cuda(),
+                             torch.from_numpy(cimg[:n]).cuda())
+        got = core.pfeat_corrector(feats[None], cp[None], [n])
+        want = cpu_corr(feats[None].cpu(), cp[None].cpu(), [n])
+    emit(study="corrector_card_vs_cpu", frames=n, **{
+        k: {"max_abs": (g.cpu() - w).abs().max().item(),
+            "max_cpu": w.abs().max().item()}
+        for k, g, w in zip(("corrected", "pred_avg", "pred_phase"),
+                           got, want)})
+    del crops, feats, cp, got
+    torch.cuda.empty_cache()
+
+    # a two-forward track through ForwardStream, cropped on the host 32
+    # frames at a time as the one-pass pipeline does: the port (forwards on
+    # the session's worker thread, pinned copies), forwards on the caller's
+    # thread, and the worker with pageable copies
+    runner = runner_mod.GRNetRunner(model, buckets=(450,))
+    frames = rng.integers(0, 256, (900, 240, 320, 3), dtype=np.uint8)
+    bb900, ci900 = np.concatenate([bbox, bbox]), np.concatenate([cimg, cimg])
+
+    class CallerThread(runner_mod.ForwardStream):
+        def _dispatch(self, m):
+            rows = self._take_rows(m) if self.gait else {}
+            self._outs.append(self._forward(self._take(m), rows))
+            self._lengths.append(m)
+
+    def pageable(x, device):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.to(device)
+
+    def stream(session_cls):
+        crop_s = feed_s = 0.0
+        t0 = time.perf_counter()
+        session = session_cls(runner)
+        for s in range(0, 900, 32):
+            t = time.perf_counter()
+            u8 = runner._host_crop(frames[s:s + 32], bb900[s:s + 32], 1.0)
+            crop_s += time.perf_counter() - t
+            t = time.perf_counter()
+            session.feed(u8, bbox=bb900[s:s + 32], cimg=ci900[s:s + 32])
+            feed_s += time.perf_counter() - t
+        fed = time.perf_counter()
+        session.finish()
+        end = time.perf_counter()
+        return {"crop_ms": crop_s * 1e3, "feed_ms": feed_s * 1e3,
+                "finish_ms": (end - fed) * 1e3, "wall_ms": (end - t0) * 1e3}
+
+    pinned = runner_mod.upload
+    variants = {"port": runner_mod.ForwardStream, "caller_thread": CallerThread,
+                "pageable": runner_mod.ForwardStream}
+    for name in ("port", "caller_thread", "pageable", "pageable",
+                 "caller_thread", "port"):
+        runner_mod.upload = pageable if name == "pageable" else pinned
+        try:
+            stream(variants[name])
+            row = stream(variants[name])
+        finally:
+            runner_mod.upload = pinned
+        emit(study="forward_stream", frames=900, feed=32, variant=name,
+             **row)
+
+
+def launch_queue() -> None:
+    """How many launches the host can queue ahead of the card, and when a
+    forward returns to the host: each call starts behind a sleep kernel of
+    about 200 ms, and the host time of the call is read beside the time
+    left until the card is idle."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import card_line
+    from gaitlab_torch.nn.grnet import GRNet
+
+    card, cycles = card_line(), 400_000_000
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    x = torch.zeros(1, device="cuda")
+    x.add_(1)
+    for n in (500, 900, 1000, 1100, 1500, 3000):
+        t, rest = host_ms(lambda: [x.add_(1) for _ in range(n)])
+        print(json.dumps({"card": card, "study": "launch_queue", "launches": n,
+                          "host_ms": t, "then_idle_ms": rest}), flush=True)
+    crops = torch.randn(450, 224, 224, 3, device="cuda")
+    rows = {"bbox": torch.tensor([[160.0, 120.0, 120.0, 120.0]] * 450,
+                                 device="cuda"),
+            "cimg": torch.tensor([[160.0, 120.0]] * 450, device="cuda")}
+    for gait in (False, True):
+        model = GRNet.create(seed=0, use_gait_feat=gait)
+        kw = {"bbox": rows["bbox"], "cimg": rows["cimg"],
+              "n_valid": 450} if gait else {}
+        model.forward(crops, **kw)
+        for _ in range(2):
+            t, rest = host_ms(lambda: model.forward(crops, **kw))
+            print(json.dumps({"card": card, "study": "forward_returns",
+                              "model": "MAX-GRNet" if gait else "GRNet",
+                              "bucket": 450, "host_ms": t,
+                              "then_idle_ms": rest}), flush=True)
+        del model
+
+
 def main() -> int:
     import torch
 
@@ -158,6 +370,10 @@ def main() -> int:
         time_tree(args[0])
     elif cmd == "ablate":
         ablate()
+    elif cmd == "gait":
+        gait()
+    elif cmd == "queue":
+        launch_queue()
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -134,7 +134,7 @@ TRACKED = ["--vid_file", "x.mp4", "--tracking_path", "t.pkl"]
 @pytest.mark.parametrize("argv", [
     TRACKED,  # video output is on unless --save_vid is passed
     *([*TRACKED, "--save_vid", *flag] for flag in (
-        ["--mesh_render"], ["--display"], ["--save_obj"], ["--onepass"],
+        ["--mesh_render"], ["--display"], ["--save_obj"],
         ["--precision", "high"], ["--precision", "default"],
         ["--parallel", "dp"]))])
 def test_unported_paths_raise(argv):
@@ -195,4 +195,6 @@ print(" ".join(names))
     assert len(names) >= 30
     assert {f"gaitlab_torch.{m}" for m in (
         "core.filters", "nn.yolo", "pipeline.detect", "pipeline.fetch",
-        "pipeline.smoothing", "pipeline.tracks", "pipeline.video")} <= names
+        "pipeline.smoothing", "pipeline.tracks", "pipeline.video",
+        "nn.gait", "pipeline.stream", "gait.features", "gait.classify",
+        "api")} <= names

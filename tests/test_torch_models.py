@@ -305,13 +305,27 @@ def test_rotmat_is_a_rotation(pair, crops):
 
 
 def test_gait_branch_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        PtGRNet.create(device="cpu", use_gait_feat=True, **TINY)
+    """The gait branch is ported: it builds on the CPU with the TINY
+    knobs, and its forward matches gaitlab's on the same weights
+    (tests/test_torch_gait.py holds it module by module)."""
+    from test_torch_gait import gait_inputs, gait_pair, jax_gait_forward
+
+    module, variables, port = gait_pair(seed=2)
+    assert port.module.use_gait_feat and hasattr(port.module,
+                                                 "pfeat_corrector")
+    crops, bbox, cimg = gait_inputs(3, seed=4)
+    want = jax_gait_forward(module, variables, crops, bbox, cimg)
+    got = {k: v.numpy() for k, v in port.forward(
+        torch.from_numpy(crops), bbox=bbox, cimg=cimg)[0].items()}
+    assert_outputs_close(got, want)
+    for k in ("pred_avg", "pred_phase", "pred_cparam"):
+        assert_close(got[k], want[k], what=k)
 
 
 def test_gaitlab_grnet_create_agrees_on_topology():
     """The port's GRNetCore takes gaitlab's topology knobs with the same
-    defaults (full width: HRNet-W32, 480 -> 128/64 head)."""
+    defaults (full width: HRNet-W32, 480 -> 128/64 head; the corrector at
+    MODEL.FEAT_CORR's defaults)."""
     import inspect
 
     from gaitlab_torch.nn.grnet import GRNetCore as PtCore
@@ -319,5 +333,8 @@ def test_gaitlab_grnet_create_agrees_on_topology():
     pt = inspect.signature(PtCore.__init__).parameters
     for name in ("num_joints", "num_input_features", "num_features_pare",
                  "num_features_smpl", "backbone_width", "backbone_modules",
-                 "backbone_blocks", "use_gait_feat"):
+                 "backbone_blocks", "use_gait_feat", "featcorr_avg_dim",
+                 "featcorr_estim_phase", "featcorr_num_layers",
+                 "featcorr_h_size", "featcorr_num_heads",
+                 "featcorr_use_jwff"):
         assert pt[name].default == getattr(JaxGRNetCore, name), name
