@@ -5,6 +5,8 @@
 
 Phases, each of which exits non-zero on failure:
   1. build   compile the CUDA kernels from gaitlab_torch/csrc (nvcc, sm_90a)
+             and the native frame loader (g++; cv2 where the toolchain or
+             codec headers are missing, and the build error is printed)
   2. kernels hold each kernel against its plain PyTorch version on the card
              at main-path shapes (B = 1, 37, 128 and 450: ragged, one wave,
              the largest bucket); time kernel, plain version and one library
@@ -61,11 +63,31 @@ Phases, each of which exits non-zero on failure:
              main run) and one-pass (checked too), which must agree on
              persons and frame ids, `gait_report` per person, and a timed
              `demo --onepass`
+  9. render  on walk_det.mp4 with phase 3's checkpoint: (a) `demo` with
+             gaitlab's default flags, i.e. video output on (skeleton
+             overlay, matplotlib): one mp4 frame per clip frame at the
+             figure's 1000x500, stage times with "render" and ms per
+             rendered frame, every kernel call at a shape phase 6 checked
+             (where matplotlib is not installed, the default flags must
+             stop before any work, and (a) runs with --mesh_render);
+             (b) `demo --mesh_render --sideview --save_obj`: frames twice
+             the clip's width, one .obj per person-frame; (c) the z-buffer
+             rasterizer (render/raster_torch.py) on scripts/render_bench.py's
+             sphere (6,966 vertices, 13,770 faces) at 1920x1080, card
+             against CPU (pixels, z-buffers) and card against card
+             (bit-identical), ms per person-frame on the card (CUDA events,
+             upload and read-back included) beside the host painter's;
+             (d) `fbx_output` on (a)'s pkl to .fbx and .glb on the card,
+             parsed back; (e) the frame loader: which decoder runs, its
+             decode of the clip's PNGs against cv2's, and the runner on
+             frame paths (PrefetchLoader) against the same frames as an
+             array, with no difference allowed
 Two lines before the last list every kernel as JSON: launches_by_path
 holds the launches of each main path, phase 6's `--smooth` demo
-("demo_smooth") and phase 8's two-pass `analyze_video` ("api_gait"), each
-counted from 0 just before its run; launches is their sum; max_abs_err is
-the largest over phases 2, 6 and 8. The line before the last holds the card's name and power limit, and the
+("demo_smooth"), phase 8's two-pass `analyze_video` ("api_gait") and
+phase 9's default demo ("demo_render"), each counted from 0 just before
+its run; launches is their sum; max_abs_err is the largest over phases
+2, 6 and 8. The line before the last holds the card's name and power limit, and the
 last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX or of the gaitlab package.
@@ -74,6 +96,7 @@ Imports nothing of JAX or of the gaitlab package.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import os
 import os.path as osp
@@ -124,6 +147,14 @@ TRACK_SLACK = 3  # SORT emits a new track from its third hit
 # and joints, the filters' 1e-6 for the filtered pose
 SMOOTH_TOL = {"verts": (2e-4, 2e-5), "pose": (1e-6, 1e-6),
               "joints3d": (2e-4, 2e-5)}
+RENDER_H, RENDER_W = 1080, 1920
+ZBUF_CAM = [0.9, 0.9, 0.05, -0.1]  # scripts/render_bench.py's person scale
+ZBUF_REPS = 10
+# z-buffer card against CPU: the same float32 arithmetic, fused in other
+# orders, may put a fragment on a pixel edge either way
+ZBUF_MIN_AGREEMENT = 0.999
+ZBUF_ATOL = 1e-5
+EXPORT_ATOL = 1e-5  # the CPU tests' tolerance for export floats
 
 
 def log(*a):
@@ -362,10 +393,11 @@ def calibrated_model(vid: str, trackfile: str, workdir: str):
     return model, crops, ckpt
 
 
-def drive_demo(argv: list, out_dir: str, stem: str):
+def drive_demo(argv: list, out_dir: str, stem: str, video: bool = False):
     """demo.main(argv) with the kernels' counts set to 0 just before it;
-    returns (the saved pkl, the counts just after, wall seconds). With the
-    smoke's checkpoint the run must write exactly smoke_ckpt.pkl."""
+    returns (the saved pkl, the counts just after, wall seconds). Video
+    output is off (--save_vid) unless `video`. With the smoke's checkpoint
+    the run must write exactly one pkl, smoke_ckpt.pkl."""
     from gaitlab_torch.cli import demo
     from gaitlab_torch.ops.blendshapes import blendshapes
     from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
@@ -376,13 +408,13 @@ def drive_demo(argv: list, out_dir: str, stem: str):
         fn.launches = 0
     t0 = time.perf_counter()
     demo.main(demo.build_parser().parse_args(
-        [*argv, "--output_folder", out_dir, "--save_vid"]))
+        [*argv, "--output_folder", out_dir] + ([] if video else ["--save_vid"])))
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in fns.items()}
     run_dir = osp.join(out_dir, stem)
-    pkls = os.listdir(run_dir)
+    pkls = [f for f in os.listdir(run_dir) if f.endswith(".pkl")]
     if pkls != ["smoke_ckpt.pkl"]:
-        raise AssertionError(f"unexpected files {pkls}")
+        raise AssertionError(f"unexpected pkl files {pkls}")
     return demo.load_pickle(osp.join(run_dir, pkls[0])), launches, wall
 
 
@@ -888,13 +920,15 @@ def hold_calls(tag: str, checked_calls: dict, main_calls: dict,
     return errs
 
 
-def track_phase(vid: str, ckpt: str, workdir: str) -> tuple[dict, dict]:
+def track_phase(vid: str, ckpt: str, workdir: str
+                ) -> tuple[dict, dict, dict]:
     """The demo from a raw video. A first run with --smooth meets the
     model's new bucket shapes and holds every kernel call of it against
     the plain version on the same inputs, and smooth_pose against its CPU
     run; the timed runs come after it, and the --smooth one is the main
     path whose kernel shapes must all have been checked. Returns the main
-    path's launches and each kernel's largest checked error."""
+    path's launches, each kernel's largest checked error and the checked
+    calls."""
     import numpy as np
 
     from gaitlab_torch.cli import demo
@@ -953,7 +987,7 @@ def track_phase(vid: str, ckpt: str, workdir: str) -> tuple[dict, dict]:
         for k in ("frame_ids", "bboxes"):
             if not np.array_equal(runs["stream"][0][pid][k], saved[pid][k]):
                 raise AssertionError(f"--stream person {pid}: other {k}")
-    return runs["smooth"][1], errs
+    return runs["smooth"][1], errs, seen["check"]["calls"]
 
 
 # ---------------------------------------------------------------------------
@@ -1147,7 +1181,7 @@ def gait_loop(plain, gait, crops, bbox, cimg) -> dict:
 
     b = GAIT_PROFILE_BUCKET
     x, bb, ci = crops[:b], bbox[:b], cimg[:b]
-    profiled(f"one MAX-GRNet bucket of {b}",
+    profiled("gait", f"one MAX-GRNet bucket of {b}",
              lambda: gait.forward(x, bbox=bb, cimg=ci, n_valid=b), 12)
     return gait_ms
 
@@ -1205,9 +1239,10 @@ def gait_stream(runner, frames, bbox, cimg, forward_ms: float) -> None:
         raise AssertionError("the feeds waited for the card's forwards")
 
 
-def profiled(label: str, fn, top: int) -> None:
+def profiled(tag: str, label: str, fn, top: int) -> None:
     """One call of `fn` under torch.profiler: device busy share of the
-    window, device operations, and the top kernels by device time."""
+    window, device operations, and the top kernels by device time, logged
+    under [tag]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1223,15 +1258,15 @@ def profiled(label: str, fn, top: int) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     if total <= 0:
-        log(f"[gait] profile of {label}: no device time seen, not measured")
+        log(f"[{tag}] profile of {label}: no device time seen, not measured")
         return
-    log(f"[gait] profile of {label}: device busy {total:.3f} ms of a "
+    log(f"[{tag}] profile of {label}: device busy {total:.3f} ms of a "
         f"{wall_ms:.2f} ms window ({100 * total / wall_ms:.1f}%), "
         f"{sum(e.count for e in kernels)} device operations")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         kms = e.self_device_time_total / 1e3
-        log(f"[gait]   {kms:8.3f} ms {100 * kms / total:5.1f}% x{e.count:<5d}"
-            f" {e.key[:90]}")
+        log(f"[{tag}]   {kms:8.3f} ms {100 * kms / total:5.1f}% "
+            f"x{e.count:<5d} {e.key[:90]}")
 
 
 def api_phase(det_vid: str, runner, ckpt: str, workdir: str
@@ -1345,6 +1380,339 @@ def gait_phase(ckpt: str, workdir: str, trackfile: str, det_vid: str
     return launches, {k: max(v, api_errs[k]) for k, v in errs.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: render, export and the frame loader
+# ---------------------------------------------------------------------------
+
+def sphere_mesh(rings: int = 85, segs: int = 81, r: float = 0.45):
+    """scripts/render_bench.py's UV sphere at SMPL scale: 6,966 vertices,
+    13,770 faces."""
+    import numpy as np
+
+    phi = np.linspace(0, np.pi, rings + 1)
+    theta = np.linspace(0, 2 * np.pi, segs, endpoint=False)
+    P, T = np.meshgrid(phi, theta, indexing="ij")
+    verts = r * np.stack([np.sin(P) * np.cos(T), np.cos(P),
+                          np.sin(P) * np.sin(T)], axis=-1).reshape(-1, 3)
+    faces = []
+    for i in range(rings):
+        for j in range(segs):
+            a = i * segs + j
+            b = i * segs + (j + 1) % segs
+            c = (i + 1) * segs + j
+            d = (i + 1) * segs + (j + 1) % segs
+            faces += [[a, b, c], [b, d, c]]
+    return verts, np.asarray(faces, np.int64)
+
+
+def video_frames(path: str) -> tuple[int, tuple]:
+    """(frame count, frame shape) of a video as cv2 decodes it."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n, shape = 0, None
+    try:
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            n, shape = n + 1, frame.shape
+    finally:
+        cap.release()
+    return n, shape
+
+
+def render_demos(det_vid: str, ckpt: str, workdir: str, checked: dict,
+                 card: str) -> tuple[dict, str, dict]:
+    """(a) the demo with gaitlab's default flags (video output on, skeleton
+    overlay) and (b) --mesh_render --sideview --save_obj, on walk_det.mp4.
+    Returns (a)'s launches, its pkl path and its results."""
+    from gaitlab_torch.cli import demo
+    from gaitlab_torch.pipeline import runner, video
+    from gaitlab_torch.render import overlay
+
+    stages = {"load_model": (demo, "load_model"),
+              "decode to PNG": (video, "video_to_images"),
+              "detect+track": (demo, "run_tracking"),
+              "crop+model": (runner.GRNetRunner, "run_track"),
+              "render": (overlay, "render_video")}
+    base = ["--vid_file", det_vid, "--detector", "median_bg", "--ckpt", ckpt]
+    default_extra = []
+    if importlib.util.find_spec("matplotlib") is None:
+        # the skeleton overlay draws with matplotlib: the demo refuses the
+        # default flags before any work, and (a) renders the mesh instead
+        try:
+            drive_demo(base, osp.join(workdir, "render_nompl"),
+                       "walk_det_mp4", video=True)
+        except ModuleNotFoundError as e:
+            log(f"[render] matplotlib is not installed here: the default "
+                f"flags stop before any decode or model work ({e}); (a) "
+                f"runs with --mesh_render, the skeleton overlay is not "
+                f"measured")
+        else:
+            raise AssertionError("the demo ran the skeleton overlay "
+                                 "without matplotlib")
+        default_extra = ["--mesh_render"]
+    out = {}
+    for tag, extra in (("default", default_extra),
+                       ("mesh", ["--mesh_render", "--sideview",
+                                 "--save_obj"])):
+        out_dir = osp.join(workdir, f"render_{tag}")
+        with stage_timers(stages) as spent, \
+                kernel_spies(check=False) as seen:
+            saved, launches, wall = drive_demo(base + extra, out_dir,
+                                               "walk_det_mp4", video=True)
+        run_dir = osp.join(out_dir, "walk_det_mp4")
+        n, shape = video_frames(osp.join(run_dir, "smoke_ckpt.mp4"))
+        log(f"[render] demo {' '.join(extra) or '(default flags)'}: "
+            f"{wall:.2f} s; stages "
+            f"{ {k: round(v, 4) for k, v in spent.items()} }, the rest "
+            f"{wall - sum(spent.values()):.4f} s; render "
+            f"{spent['render'] * 1e3 / max(n, 1):.2f} ms per rendered frame "
+            f"({n} frames {shape[1]}x{shape[0]}); kernel launches "
+            f"{launches}; persons [first, end) frames {spans(saved)} ({card})")
+        if set(saved) != {0, 1}:
+            raise AssertionError(f"expected persons 0 and 1, got {list(saved)}")
+        for pid, person in saved.items():
+            check_person(pid, person)
+        if "--sideview" in extra:
+            want = (CLIP_H, 2 * CLIP_W, 3)
+        elif "--mesh_render" in extra:
+            want = (CLIP_H, CLIP_W, 3)
+        else:
+            want = (500, 1000, 3)  # the skeleton overlay's 10x5 in figure
+        if n != CLIP_FRAMES or shape != want:
+            raise AssertionError(f"{tag} video: {n} frames of {shape}, want "
+                                 f"{CLIP_FRAMES} of {want}")
+        if min(launches.values()) <= 0 or \
+                launches["blendshapes"] != launches["keypoint_attention"]:
+            raise AssertionError(f"unexpected launches {launches}")
+        for name, calls in seen["calls"].items():
+            unchecked = {sh for sh, _ in calls} - {sh for sh, _ in
+                                                   checked[name]}
+            if len(calls) != launches[name] or unchecked:
+                raise AssertionError(f"{name}: shapes {unchecked} of the "
+                                     f"render path were not checked")
+        log(f"[render] every kernel call of this run at a shape held "
+            f"against its plain version in phase 6: "
+            f"{ {k: [sh[-1][0] for sh, _ in v] for k, v in seen['calls'].items()} }")
+        if tag == "mesh":
+            objs = sum(len(fs) for _, _, fs in os.walk(osp.join(run_dir,
+                                                                "rendered")))
+            want_objs = sum(len(p["frame_ids"]) for p in saved.values())
+            log(f"[render] --save_obj: {objs} .obj files for {want_objs} "
+                f"person-frames")
+            if objs != want_objs:
+                raise AssertionError("--save_obj wrote other files")
+        out[tag] = (launches, osp.join(run_dir, "smoke_ckpt.pkl"), saved)
+    return out["default"]
+
+
+def zbuffer_phase(card: str) -> None:
+    """(c) The sphere at 1920x1080 through render_mesh_zbuffer on the card
+    and on the CPU: pixel agreement, z-buffers where both are covered, two
+    card runs bit-identical; ms per person-frame on the card (CUDA events,
+    host prep, upload and read-back included, median of ZBUF_REPS) beside
+    the host painter's on the same frame."""
+    import numpy as np
+    import torch
+
+    from gaitlab_torch.render import raster, raster_torch
+
+    verts, faces = sphere_mesh()
+    img = np.random.default_rng(SEED).integers(0, 255, (RENDER_H, RENDER_W,
+                                                        3)).astype(np.uint8)
+    color = np.float32([1.0, 1.0, 0.9]) * 255.0
+    inputs = raster_torch.mesh_inputs(RENDER_H, RENDER_W, verts, ZBUF_CAM,
+                                      faces)
+    pix, depth, tri, shade, groups = inputs
+    frags = sum(len(i) * k * k for i, k in groups)
+
+    def rasterize(device):
+        canvas, zbuf = raster_torch._rasterize(pix, depth, tri, shade, color,
+                                               img, groups, device)
+        return (canvas.clamp(0, 255).to(torch.uint8).cpu().numpy(),
+                zbuf.cpu().numpy())
+
+    torch.cuda.reset_peak_memory_stats()
+    card_a = rasterize("cuda")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    card_b = rasterize("cuda")
+    cpu = rasterize("cpu")
+    covered = (card_a[1] < raster_torch.FAR) & (cpu[1] < raster_torch.FAR)
+    agree = (card_a[0] == cpu[0]).all(-1).mean()
+    zerr = float(np.abs(card_a[1] - cpu[1])[covered].max())
+    same = all(np.array_equal(x, y) for x, y in zip(card_a, card_b))
+    log(f"[render] z-buffer, sphere {len(verts)} vertices / {len(faces)} "
+        f"faces at {RENDER_W}x{RENDER_H}: window classes "
+        f"{[(len(i), k) for i, k in groups]} ({frags / 1e6:.2f} M fragments); "
+        f"card vs CPU {agree:.6f} of pixels equal (limit "
+        f"{ZBUF_MIN_AGREEMENT}), max |zbuf diff| where both covered "
+        f"{zerr:.3e} (limit {ZBUF_ATOL:g}) over {int(covered.sum())} pixels; "
+        f"two card runs bit-identical: {same}; peak card memory "
+        f"{peak:.1f} MiB")
+    if not (agree >= ZBUF_MIN_AGREEMENT and zerr <= ZBUF_ATOL and same):
+        raise AssertionError("the z-buffer on the card disagrees")
+    if not np.array_equal(raster_torch.render_mesh_zbuffer(
+            img, verts, ZBUF_CAM, faces), card_a[0]):
+        raise AssertionError("render_mesh_zbuffer paints another image")
+
+    def events_ms(fn):
+        fn()
+        times = []
+        for _ in range(ZBUF_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    card_ms = events_ms(lambda: raster_torch.render_mesh_zbuffer(
+        img, verts, ZBUF_CAM, faces))
+    prep_ms = []
+    for _ in range(ZBUF_REPS):
+        t0 = time.perf_counter()
+        raster_torch.mesh_inputs(RENDER_H, RENDER_W, verts, ZBUF_CAM, faces)
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+    device_ms = events_ms(lambda: raster_torch._rasterize(
+        pix, depth, tri, shade, color, img, groups, "cuda"))
+    painter_ms = []
+    for _ in range(ZBUF_REPS):
+        t0 = time.perf_counter()
+        raster.render_mesh(img, verts, ZBUF_CAM, faces)
+        painter_ms.append((time.perf_counter() - t0) * 1e3)
+    profiled("render", "one z-buffer frame (host inputs to card canvas)",
+             lambda: raster_torch._rasterize(pix, depth, tri, shade, color,
+                                             img, groups, "cuda"), 6)
+    log(f"[render] z-buffer on the card: {card_ms:.3f} ms per person-frame "
+        f"(CUDA events, median of {ZBUF_REPS}: host prep "
+        f"{statistics.median(prep_ms):.3f} ms, upload, raster {device_ms:.3f}"
+        f" ms with the frame's upload, read-back); host painter on the same "
+        f"frame {statistics.median(painter_ms):.3f} ms ({card})")
+
+
+def export_phase(pkl: str, workdir: str, saved: dict) -> None:
+    """(d) fbx_output on (a)'s pkl to .fbx and .glb on the card, parsed
+    back: the node tree, 24 LimbNodes and the frame count; the skinning
+    data computed on the card against the CPU."""
+    import numpy as np
+
+    from gaitlab_torch.cli import fbx_output
+    from gaitlab_torch.render import export, fbx
+
+    n = max(len(p["frame_ids"]) for p in saved.values())
+    paths = {}
+    for ext in (".fbx", ".glb"):
+        paths[ext] = osp.join(workdir, "export", f"anim{ext}")
+        t0 = time.perf_counter()
+        if fbx_output.main(["--input", pkl, "--output", paths[ext]]) != 0:
+            raise AssertionError(f"fbx_output {ext} failed")
+        log(f"[render] fbx_output {ext} on the card: "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms, "
+            f"{os.path.getsize(paths[ext])} bytes")
+    tree = fbx.parse_fbx(paths[".fbx"])
+    limbs = [m for m in fbx.find_nodes(tree, "Model")
+             if m["props"][2] == b"LimbNode"]
+    key_counts = {len(k["props"][0]) for k in fbx.find_nodes(tree, "KeyTime")}
+    top = [node["name"] for node in tree["nodes"]]
+    log(f"[render] .fbx parsed: version {tree['version']}, top nodes {top}, "
+        f"{len(limbs)} LimbNodes, key counts {key_counts} for {n} frames")
+    if len(limbs) != 24 or key_counts != {n} or "Objects" not in top:
+        raise AssertionError("the .fbx has another tree")
+    gltf, _ = parse_glb(paths[".glb"])
+    times = gltf["accessors"][gltf["animations"][0]["samplers"][0]["input"]]
+    log(f"[render] .glb parsed: {len(gltf['nodes'])} nodes, "
+        f"{len(gltf['animations'][0]['channels'])} channels, {times['count']} "
+        f"keyframes")
+    if len(gltf["nodes"]) != 25 or times["count"] != n:
+        raise AssertionError("the .glb has another tree")
+    # what the card computes for both files, against the CPU
+    person = max(saved.values(), key=lambda p: len(p["frame_ids"]))
+    card, host = (export.anim_skin_data(person["pose"], person["betas"],
+                                        device=d) for d in (None, "cpu"))
+    errs = {k: float(np.abs(card[k] - host[k]).max())
+            for k in ("v_shaped", "joints_rest", "quats_wxyz")}
+    log(f"[render] skinning data card vs CPU: max abs {errs} (tolerance "
+        f"{EXPORT_ATOL:g}: float32 sums in other orders)")
+    if not max(errs.values()) <= EXPORT_ATOL:
+        raise AssertionError("export data: card and CPU disagree")
+
+
+def parse_glb(path: str):
+    """(glTF JSON, binary chunk) of a .glb file."""
+    import struct
+
+    with open(path, "rb") as f:
+        magic, version, _ = struct.unpack("<III", f.read(12))
+        jlen, _ = struct.unpack("<II", f.read(8))
+        gltf = json.loads(f.read(jlen))
+        blen, _ = struct.unpack("<II", f.read(8))
+        blob = f.read(blen)
+    if (magic, version) != (0x46546C67, 2):
+        raise AssertionError("not a glTF 2 binary")
+    return gltf, blob
+
+
+def loader_phase(det_vid: str, ckpt: str, workdir: str, saved: dict,
+                 card: str) -> None:
+    """(e) The native loader: which decoder runs; its decode of the clip's
+    PNG folder against cv2's; the runner on frame paths (PrefetchLoader,
+    pinned chunks) against the same frames as an array."""
+    import cv2
+    import numpy as np
+
+    from gaitlab_torch.cli.demo import build_model
+    from gaitlab_torch.pipeline import loader, video
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    decoder, error = loader.native_status()
+    log(f"[render] frame loader: {decoder} decoder"
+        + (f" (native build failed: {error})" if error else ""))
+    folder = video.video_to_images(det_vid, osp.join(workdir, "loader"))
+    paths = video.list_image_files(folder)
+    t0 = time.perf_counter()
+    frames = loader.load_frames(paths)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = np.stack([cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
+                    for p in paths])
+    cv2_ms = (time.perf_counter() - t0) * 1e3
+    equal = np.array_equal(frames, ref)
+    log(f"[render] {len(paths)} PNG frames: loader.load_frames ({decoder}) "
+        f"{load_ms:.1f} ms, cv2.imread one by one {cv2_ms:.1f} ms, equal "
+        f"{equal} ({card})")
+    if not equal:
+        raise AssertionError("the loader's decode differs from cv2's")
+    person = saved[0]
+    ids = np.asarray(person["frame_ids"])
+    runner = GRNetRunner(build_model(ckpt), bbox_scale=1.0)
+    bboxes = np.asarray(person["bboxes"], np.float32)
+    on_paths = runner.run_track([paths[i] for i in ids], bboxes)
+    on_array = runner.run_track(ref[ids], bboxes)
+    errs = {k: float(np.abs(on_paths[k] - on_array[k]).max())
+            for k in ("pred_cam", "pose", "joints3d")}
+    log(f"[render] runner on {len(ids)} frame paths (PrefetchLoader, "
+        f"{runner.ingest_chunk} a chunk) vs the same frames as an array: "
+        f"max abs diff {errs} (tolerance 0: the same uint8 frames reach the "
+        f"same crop and forward)")
+    if max(errs.values()) != 0.0:
+        raise AssertionError("the runner on frame paths gives other outputs")
+
+
+def render_phase(det_vid: str, ckpt: str, workdir: str, checked: dict,
+                 card: str) -> dict:
+    """Phase 9; returns the default demo's launches ("demo_render")."""
+    launches, pkl, saved = render_demos(det_vid, ckpt, workdir, checked, card)
+    zbuffer_phase(card)
+    export_phase(pkl, workdir, saved)
+    loader_phase(det_vid, ckpt, workdir, saved, card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1360,6 +1728,14 @@ def main() -> int:
     _build.build_all(verbose=True)
     log(f"[build] both kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
+    from gaitlab_torch.pipeline import loader
+
+    t0 = time.perf_counter()
+    decoder, error = loader.native_status()
+    log(f"[build] frame loader: {decoder} decoder "
+        + (f"(native build failed: {error})" if error else
+           f"built with g++ into {osp.relpath(loader.BUILD_DIR)} in "
+           f"{time.perf_counter() - t0:.2f} s"))
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(256 * 2**20 // 4, device="cuda")
@@ -1384,11 +1760,13 @@ def main() -> int:
         del model, crops
         det_vid = make_detect_clip(workdir)
         weights = detect_phase(det_vid, workdir)
-        launches, path_errs = track_phase(det_vid, ckpt, workdir)
+        launches, path_errs, checked = track_phase(det_vid, ckpt, workdir)
         yolo_phase(det_vid, ckpt, weights, workdir)
         gait_launches, gait_errs = gait_phase(ckpt, workdir, trackfile,
                                               det_vid)
-    paths = {"demo_smooth": launches, "api_gait": gait_launches}
+        render_launches = render_phase(det_vid, ckpt, workdir, checked, card)
+    paths = {"demo_smooth": launches, "api_gait": gait_launches,
+             "demo_render": render_launches}
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

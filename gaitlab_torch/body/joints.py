@@ -2,9 +2,9 @@
 
 Counterpart of gaitlab/body/joints.py: the same name tables, so that
 `convert_kps(x, src, dst)` gathers by joint name and zero-fills joints the
-source lacks, as the reference's kp_utils.convert_kps does. The demo uses
-it for `--joint_type` other than spin. The bone lists that gaitlab keeps
-for rendering are not ported yet.
+source lacks, as the reference's kp_utils.convert_kps does, and the same
+bone lists (`get_skeleton`), which the overlay draws. The demo uses it for
+`--joint_type` other than spin.
 
 Deployed formats: 'spin' (49), 'spin2' (29), 'kinectv2' (25); the rest are
 kept for dataset interchange.
@@ -19,10 +19,13 @@ import numpy as np
 # ---------------------------------------------------------------------------
 
 JOINT_FORMATS: dict[str, list[str]] = {}
+SKELETONS: dict[str, np.ndarray] = {}
 
 
-def register_format(name: str, joints: list[str]):
+def register_format(name: str, joints: list[str], skeleton=None):
     JOINT_FORMATS[name] = joints
+    if skeleton is not None:
+        SKELETONS[name] = np.asarray(skeleton)
 
 
 register_format("spin", [
@@ -36,6 +39,11 @@ register_format("spin", [
     "neck", "headtop", "hip", "thorax", "Spine (H36M)", "Jaw (H36M)",
     "Head (H36M)", "nose", "leftThumb", "rightThumb", "leftFoot",
     "rightFoot",
+], skeleton=[
+    [0, 1], [1, 2], [1, 5], [2, 3], [5, 6], [3, 4], [6, 7], [1, 8],
+    [8, 12], [8, 9], [12, 13], [9, 10], [13, 14], [10, 11], [0, 16],
+    [0, 15], [16, 18], [15, 17], [21, 20], [24, 23], [19, 20], [22, 23],
+    [19, 21], [22, 24], [14, 21], [11, 24], [0, 38],
 ])
 
 register_format("spin2", [
@@ -52,6 +60,12 @@ register_format("kinectv2", [
     "lhip (SMPL)", "lknee", "lankle", "leftFoot", "rhip (SMPL)", "rknee",
     "rankle", "rightFoot", "thorax", "leftHandTip", "leftThumb",
     "rightHandTip", "rightThumb",
+], skeleton=[
+    [0, 1], [20, 2], [1, 20], [2, 3],
+    [20, 4], [20, 8], [4, 5], [8, 9], [5, 6], [9, 10],
+    [6, 7], [10, 11], [7, 21], [11, 23], [6, 22], [10, 24],
+    [0, 12], [0, 16], [12, 13], [16, 17], [13, 14], [17, 18],
+    [14, 15], [18, 19],
 ])
 
 register_format("smpl", [
@@ -60,6 +74,11 @@ register_format("smpl", [
     "rightToeBase", "neck", "leftShoulder", "rightShoulder", "head",
     "leftArm", "rightArm", "leftForeArm", "rightForeArm", "leftHand",
     "rightHand", "leftHandIndex1", "rightHandIndex1",
+], skeleton=[
+    [0, 1], [0, 2], [0, 3], [2, 5], [1, 4], [3, 6], [4, 7], [5, 8],
+    [6, 9], [8, 11], [7, 10], [9, 13], [9, 12], [9, 14], [12, 15],
+    [14, 17], [13, 16], [17, 19], [16, 18], [19, 21], [18, 20],
+    [21, 23], [20, 22],
 ])
 
 register_format("smpl2", [
@@ -73,6 +92,10 @@ register_format("h36m", [
     "hip", "rhip (H36M)", "rknee", "rankle", "lhip (H36M)", "lknee",
     "lankle", "Spine (H36M)", "Jaw (H36M)", "Head (H36M)", "headtop",
     "lshoulder", "lelbow", "lwrist", "rshoulder", "relbow", "rwrist",
+], skeleton=[
+    [0, 4], [0, 1], [4, 5], [1, 2], [5, 6], [2, 3], [0, 7], [8, 9],
+    [7, 8], [9, 10], [8, 11], [8, 14], [11, 12], [14, 15], [12, 13],
+    [15, 16],
 ])
 
 register_format("shcommon", [
@@ -85,18 +108,28 @@ register_format("common", [
     "rankle", "rknee", "rhip", "lhip", "lknee", "lankle", "rwrist",
     "relbow", "rshoulder", "lshoulder", "lelbow", "lwrist", "neck",
     "headtop",
+], skeleton=[
+    [0, 1], [1, 2], [3, 4], [4, 5], [6, 7], [7, 8], [8, 2], [8, 9],
+    [9, 3], [2, 3], [8, 12], [9, 10], [12, 9], [10, 11], [12, 13],
 ])
 
 register_format("coco", [
     "nose", "leye", "reye", "lear", "rear", "lshoulder", "rshoulder",
     "lelbow", "relbow", "lwrist", "rwrist", "lhip", "rhip", "lknee",
     "rknee", "lankle", "rankle",
+], skeleton=[
+    [15, 13], [13, 11], [16, 14], [14, 12], [11, 12], [5, 11], [6, 12],
+    [5, 6], [5, 7], [6, 8], [7, 9], [8, 10], [1, 2], [0, 1], [0, 2],
+    [1, 3], [2, 4], [3, 5], [4, 6],
 ])
 
 register_format("mpii", [
     "rankle", "rknee", "rhip", "lhip", "lknee", "lankle", "hip", "thorax",
     "neck", "headtop", "rwrist", "relbow", "rshoulder", "lshoulder",
     "lelbow", "lwrist",
+], skeleton=[
+    [0, 1], [1, 2], [2, 6], [6, 3], [3, 4], [4, 5], [6, 7], [7, 8],
+    [8, 9], [7, 12], [12, 11], [11, 10], [7, 13], [13, 14], [14, 15],
 ])
 
 register_format("mpii3d", [
@@ -119,6 +152,11 @@ register_format("insta", [
     "OP LElbow", "OP LWrist", "OP Neck", "headtop", "OP Nose", "reye",
     "leye", "lear", "rear", "OP LBigToe", "OP RBigToe", "OP LSmallToe",
     "OP RSmallToe", "OP LAnkle", "OP RAnkle",
+], skeleton=[
+    [0, 1], [1, 2], [2, 3], [3, 4], [4, 5], [6, 7], [7, 8], [8, 9],
+    [9, 10], [2, 8], [3, 9], [10, 11], [8, 12], [9, 12], [12, 13],
+    [12, 14], [14, 15], [14, 16], [15, 17], [16, 18], [0, 20], [20, 22],
+    [5, 19], [19, 21], [5, 23], [0, 24],
 ])
 
 register_format("OP21a", [
@@ -126,11 +164,18 @@ register_format("OP21a", [
     "OP LShoulder", "OP LElbow", "OP LWrist", "OP MidHip", "OP RHip",
     "OP RKnee", "OP RAnkle", "OP LHip", "OP LKnee", "OP LAnkle",
     "OP REye", "OP LEye", "OP REar", "OP LEar", "Jaw (H36M)", "headtop",
+], skeleton=[
+    [1, 19], [0, 19], [1, 8], [0, 20], [1, 5], [1, 2], [5, 6], [2, 3],
+    [6, 7], [3, 4], [8, 12], [1, 8], [12, 13], [8, 9], [13, 14], [9, 10],
+    [0, 16], [10, 11], [16, 18], [0, 15],
 ])  # kp_utils.py:861-906
 
 register_format("aich", [
     "rshoulder", "relbow", "rwrist", "lshoulder", "lelbow", "lwrist",
     "rhip", "rknee", "rankle", "lhip", "lknee", "lankle", "headtop", "neck",
+], skeleton=[
+    [0, 1], [1, 2], [3, 4], [4, 5], [6, 7], [7, 8], [9, 10], [10, 11],
+    [12, 13], [13, 0], [13, 3], [0, 6], [3, 9],
 ])  # kp_utils.py:576-614
 
 register_format("staf", [
@@ -139,6 +184,10 @@ register_format("staf", [
     "OP RKnee", "OP RAnkle", "OP LHip", "OP LKnee", "OP LAnkle",
     "OP REye", "OP LEye", "OP REar", "OP LEar", "Neck (LSP)",
     "Top of Head (LSP)",
+], skeleton=[
+    [0, 1], [1, 2], [2, 3], [3, 4], [1, 5], [5, 6], [6, 7], [1, 8],
+    [8, 9], [9, 10], [10, 11], [8, 12], [12, 13], [13, 14], [0, 15],
+    [0, 16], [15, 17], [16, 18], [2, 9], [5, 12], [1, 19], [20, 19],
 ])
 
 register_format("posetrack", [
@@ -166,12 +215,19 @@ register_format("smplcoco", [
     "rankle", "rknee", "rhip", "lhip", "lknee", "lankle", "rwrist",
     "relbow", "rshoulder", "lshoulder", "lelbow", "lwrist", "neck",
     "headtop", "nose", "leye", "reye", "lear", "rear",
+], skeleton=[
+    [0, 1], [1, 2], [3, 4], [4, 5], [6, 7], [7, 8], [8, 12], [12, 9],
+    [9, 10], [10, 11], [12, 13], [14, 15], [15, 17], [16, 18], [14, 16],
+    [8, 2], [9, 3], [2, 3],
 ])
 
 register_format("3dpw", [
     "nose", "thorax", "rshoulder", "relbow", "rwrist", "lshoulder",
     "lelbow", "lwrist", "rhip", "rknee", "rankle", "lhip", "lknee",
     "lankle",
+], skeleton=[
+    [0, 1], [1, 2], [2, 3], [3, 4], [1, 5], [5, 6], [6, 7], [2, 8],
+    [5, 11], [8, 11], [8, 9], [9, 10], [11, 12], [12, 13],
 ])
 
 register_format("cmu21", [
@@ -196,6 +252,10 @@ register_format("h36m32", [
 
 def get_joint_names(fmt: str) -> list[str]:
     return JOINT_FORMATS[fmt]
+
+
+def get_skeleton(fmt: str) -> np.ndarray:
+    return SKELETONS[fmt]
 
 
 def conversion_indices(src: str, dst: str) -> tuple[np.ndarray, np.ndarray]:

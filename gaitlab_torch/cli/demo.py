@@ -8,15 +8,18 @@ precomputed tracklets (--tracking_path) or from a detector (--detector:
 YOLOv3 on the card, or the median-background detector on the host) and
 SORT; --stream decodes straight from the video instead of a PNG folder,
 and --onepass detects, tracks, crops and runs the model in one pass over
-it (ignored with --tracking_path or --img_folder, as in gaitlab).
+it (ignored with --tracking_path or --img_folder, as in gaitlab). Video
+output is on unless --save_vid is passed: a skeleton overlay beside a 3D
+panel, or with --mesh_render the SMPL mesh (--wireframe, --sideview);
+--save_obj writes one .obj per person and frame. With video output on,
+--stream and --onepass fall back to the frame folder, as in gaitlab.
 Runs on CUDA unless --cpu_only is given. Paths of gaitlab's demo that are
-not ported yet raise NotImplementedError: rendering (video output unless
---save_vid is passed, --mesh_render, --display, --save_obj), --precision
-other than float32, and --parallel.
+not ported yet raise NotImplementedError: --precision other than float32,
+and --parallel.
 
 Usage:
   python -m gaitlab_torch.cli.demo --vid_file clip.mp4 \
-      --detector median_bg --smooth --save_vid --output_folder out/
+      --detector median_bg --smooth --output_folder out/
 """
 
 from __future__ import annotations
@@ -79,8 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--joint_type", type=str, default="spin",
                    help="output 3D joint format.")
     p.add_argument("--save_vid", action="store_false",
-                   help="save output video to output folder (the flag "
-                        "turns it off; video output is not ported yet).")
+                   help="save output video to output folder (on by "
+                        "default; the flag turns it off).")
     p.add_argument("--cpu_only", action="store_true",
                    help="run on the CPU instead of the card.")
     p.add_argument("--smpl_model", type=str, default=None,
@@ -88,13 +91,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "data/smpl_data per config).")
     p.add_argument("--stream", action="store_true",
                    help="decode frames straight from the video (no PNG "
-                        "frame folder); needs video output off "
-                        "(--save_vid).")
+                        "frame folder); with video output on (no "
+                        "--save_vid) it falls back to the folder.")
     p.add_argument("--onepass", action="store_true",
                    help="single-decode pipeline: detect, track, crop and "
                         "run the model in one pass over the video "
-                        "(pipeline/stream.py); needs video output off "
-                        "(--save_vid).")
+                        "(pipeline/stream.py); with video output on (no "
+                        "--save_vid) it falls back to the folder.")
     p.add_argument("--precision", type=str, default=None,
                    choices=["high", "float32", "default"],
                    help="matmul precision; only float32 (TF32 off) is "
@@ -108,10 +111,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise NotImplementedError for every flag whose path is not ported."""
     unported = {
-        "video output (pass --save_vid to turn it off)": args.save_vid,
-        "--mesh_render": args.mesh_render,
-        "--display": args.display,
-        "--save_obj": args.save_obj,
         f"--precision {args.precision}": args.precision not in (None,
                                                                 "float32"),
         f"--parallel {args.parallel}": args.parallel is not None,
@@ -120,6 +119,19 @@ def check_ported(args) -> None:
     if missing:
         raise NotImplementedError(
             "not ported to gaitlab_torch yet: " + ", ".join(missing))
+
+
+def check_render_deps(args) -> None:
+    """The skeleton overlay (video output without --mesh_render) draws
+    with matplotlib: without it, fail before any decode or model work."""
+    if args.save_vid and not args.mesh_render:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            raise ModuleNotFoundError(
+                "the skeleton overlay video needs matplotlib, which is not "
+                "installed: pass --mesh_render for the mesh overlay, or "
+                "--save_vid to turn video output off") from e
 
 
 def load_model(args, cfg):
@@ -291,8 +303,9 @@ def _runner_kwargs(args) -> dict:
     return {}
 
 
-def _save(args, grnet_results: dict, output_path: str) -> None:
-    """The pkl, named as the reference names it (a counter on repeats)."""
+def _save(args, grnet_results: dict, output_path: str) -> str:
+    """The pkl, named as the reference names it (a counter on repeats);
+    returns its file name."""
     ckpt_base = (osp.basename(args.ckpt).split(".")[0] if args.ckpt
                  else "grnet")
     idx = sum(1 for f in os.listdir(output_path)
@@ -303,6 +316,45 @@ def _save(args, grnet_results: dict, output_path: str) -> None:
     # a plain pickle, which joblib.load (the reference's reader) reads
     with open(pklpath, "wb") as f:
         pickle.dump(grnet_results, f)
+    return pklname
+
+
+def _save_and_render(args, grnet_results: dict, num_frames_list,
+                     image_folder, output_path: str, model, timer,
+                     orig_width, orig_height) -> None:
+    """The demo's tail: the pkl, --save_obj meshes, the overlay video
+    (named after the pkl) and the stage report."""
+    pklname = _save(args, grnet_results, output_path)
+    if args.save_obj and grnet_results:
+        # per-person per-frame meshes, the reference's naming
+        # rendered/{person:04d}/{frame:06d}.obj, with or without
+        # --mesh_render
+        from gaitlab_torch.render import export
+
+        faces = model.smpl.faces
+        if faces is None:
+            print("WARNING: --save_obj needs SMPL faces; skipping.")
+        else:
+            for person_id, d in grnet_results.items():
+                folder = osp.join(output_path, "rendered", f"{person_id:04d}")
+                os.makedirs(folder, exist_ok=True)
+                for verts, fid in zip(d["verts"], d["frame_ids"]):
+                    export.export_obj(
+                        osp.join(folder, f"{int(fid):06d}.obj"), verts, faces)
+            print(f'Saved per-frame .obj meshes under '
+                  f'"{osp.join(output_path, "rendered")}".')
+    if args.save_vid and grnet_results:
+        from gaitlab_torch.render import overlay
+
+        save_name = osp.join(output_path, pklname.split(".")[0] + ".mp4")
+        with timer.stage("render"):
+            overlay.render_video(
+                grnet_results, num_frames_list, image_folder, save_name,
+                orig_size=(orig_width, orig_height),
+                mesh_render=args.mesh_render, wireframe=args.wireframe,
+                sideview=args.sideview, joint_type=args.joint_type,
+                smpl_faces=model.smpl.faces, display=args.display)
+    print("Stage timing:\n" + timer.report())
 
 
 def _report(n_frames: int, grnet_time: float, total_time: float) -> None:
@@ -314,9 +366,10 @@ def _report(n_frames: int, grnet_time: float, total_time: float) -> None:
 
 
 def run_onepass(args, model, video_file, orig_width, orig_height,
-                total_time) -> dict:
+                total_time) -> tuple[dict, list]:
     """--onepass: one decode of the video for detection, SORT, crops and
-    the model (pipeline/stream.py)."""
+    the model (pipeline/stream.py). Returns the results and the sorted
+    union of the tracks' frame ids."""
     from gaitlab_torch.pipeline import detect
     from gaitlab_torch.pipeline import stream as stream_mod
     from gaitlab_torch.pipeline.runner import GRNetRunner
@@ -331,19 +384,48 @@ def run_onepass(args, model, video_file, orig_width, orig_height,
         pid: _person_output(out, out["bboxes"], out["frames"], pid, args,
                             model, orig_width, orig_height)
         for pid, out in res.items()}
-    # frames per second: the sorted union of the tracks' frame ids
-    _report(len({int(f) for r in res.values() for f in r["frames"]}),
-            grnet_time, total_time)
+    num_frames_list = sorted({int(f) for r in res.values()
+                              for f in r["frames"]})
+    _report(len(num_frames_list), grnet_time, total_time)
+    return grnet_results, num_frames_list
+
+
+def run_tracks(args, model, tracking_results, image_folder, video_file,
+               orig_width, orig_height) -> dict:
+    """GRNet on each tracklet: frames from the folder's PNGs, or decoded
+    from the video when there is no folder (--stream)."""
+    from gaitlab_torch.pipeline import video
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    runner = GRNetRunner(model, bbox_scale=1.0, **_runner_kwargs(args))
+    image_files = (np.array(video.list_image_files(image_folder))
+                   if image_folder else None)
+    print("Running Model on each tracklet...")
+    grnet_results = {}
+    for person_id in list(tracking_results.keys()):
+        bboxes = np.array(tracking_results[person_id]["bbox"], np.float32)
+        frames = np.asarray(tracking_results[person_id]["frames"])
+        if image_files is None:  # --stream: decode from the video
+            source = video.VideoChunkReader(video_file, frame_ids=frames,
+                                            reuse_buffers=True)
+        else:
+            source = list(image_files[frames])
+        out = runner.run_track(source, bboxes)
+        grnet_results[person_id] = _person_output(
+            out, bboxes, frames, person_id, args, model, orig_width,
+            orig_height)
     return grnet_results
 
 
 def main(args):
     from gaitlab_torch.config import parse_args
-    from gaitlab_torch.pipeline import video
-    from gaitlab_torch.pipeline.runner import GRNetRunner
+    from gaitlab_torch.pipeline import loader, video
+    from gaitlab_torch.utils import StageTimer
 
     check_ported(args)
+    check_render_deps(args)
     total_time = time.time()
+    timer = StageTimer()
     cfg, _ = parse_args(args)
 
     video_file = args.vid_file
@@ -364,56 +446,50 @@ def main(args):
     onepass = (bool(args.onepass) and not args.img_folder
                and not args.tracking_path)
     stream = (bool(args.stream) or onepass) and not args.img_folder
+    if stream and (args.save_vid or args.mesh_render or args.display):
+        print("WARNING: --stream/--onepass need rendering/display off "
+              "(pass --save_vid to disable video output); using the "
+              "frame-folder pipeline.")
+        stream = onepass = False
     if args.img_folder:
         image_folder = args.img_folder
-        import cv2
-
         files = video.list_image_files(image_folder)
         num_frames = len(files)
-        orig_height, orig_width = cv2.imread(files[0]).shape[:2]
+        orig_height, orig_width = loader.image_size(files[0])
     elif stream:
         image_folder = None
         num_frames, _, orig_width, orig_height = video.get_video_info(
             video_file)
     else:
-        image_folder, num_frames, img_shape = video.video_to_images(
-            video_file, return_info=True)
+        with timer.stage("decode"):
+            image_folder, num_frames, img_shape = video.video_to_images(
+                video_file, return_info=True)
         orig_height, orig_width = img_shape[:2]
     print(f"Input video number of frames {num_frames}")
-    if onepass:
-        grnet_results = run_onepass(args, model, video_file, orig_width,
-                                    orig_height, total_time)
-        _save(args, grnet_results, output_path)
-        print("================= END =================")
-        return grnet_results
     try:
-        tracking_results, num_frames_list = run_tracking(
-            args, image_folder, video_file=video_file if stream else None,
-            device=model.device)
-        for person_id in list(tracking_results.keys()):
-            if tracking_results[person_id]["frames"].shape[0] < MIN_NUM_FRAMES:
-                del tracking_results[person_id]
-        runner = GRNetRunner(model, bbox_scale=1.0, **_runner_kwargs(args))
-        image_files = (np.array(video.list_image_files(image_folder))
-                       if image_folder else None)
-
-        print("Running Model on each tracklet...")
-        grnet_time = time.time()
-        grnet_results = {}
-        for person_id in list(tracking_results.keys()):
-            bboxes = np.array(tracking_results[person_id]["bbox"], np.float32)
-            frames = np.asarray(tracking_results[person_id]["frames"])
-            if image_files is None:  # --stream: decode from the video
-                source = video.VideoChunkReader(video_file, frame_ids=frames,
-                                                reuse_buffers=True)
-            else:
-                source = list(image_files[frames])
-            out = runner.run_track(source, bboxes)
-            grnet_results[person_id] = _person_output(
-                out, bboxes, frames, person_id, args, model, orig_width,
-                orig_height)
-        _report(len(num_frames_list), grnet_time, total_time)
-        _save(args, grnet_results, output_path)
+        if onepass:
+            with timer.stage("onepass"):
+                grnet_results, num_frames_list = run_onepass(
+                    args, model, video_file, orig_width, orig_height,
+                    total_time)
+        else:
+            with timer.stage("tracking"):
+                tracking_results, num_frames_list = run_tracking(
+                    args, image_folder,
+                    video_file=video_file if stream else None,
+                    device=model.device)
+            for person_id in list(tracking_results.keys()):
+                if tracking_results[person_id]["frames"].shape[0] < \
+                        MIN_NUM_FRAMES:
+                    del tracking_results[person_id]
+            grnet_time = time.time()
+            with timer.stage("model"):
+                grnet_results = run_tracks(
+                    args, model, tracking_results, image_folder, video_file,
+                    orig_width, orig_height)
+            _report(len(num_frames_list), grnet_time, total_time)
+        _save_and_render(args, grnet_results, num_frames_list, image_folder,
+                         output_path, model, timer, orig_width, orig_height)
     finally:
         if not args.img_folder and image_folder:
             shutil.rmtree(image_folder)

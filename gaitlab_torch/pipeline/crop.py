@@ -49,6 +49,12 @@ def gen_trans_from_patch(c_x, c_y, src_width, src_height, dst_width,
     return np.linalg.solve(A, dst).T  # (2,3)
 
 
+def trans_point2d(pt_2d, trans) -> np.ndarray:
+    """One point through a 2x3 affine."""
+    src = np.array([pt_2d[0], pt_2d[1], 1.0])
+    return (trans @ src)[:2]
+
+
 def _axis_samples(dst_size: int, inv_scale: np.ndarray, offset: np.ndarray,
                   src_size: int, quantize: bool):
     """Source coordinates + lerp weights for one axis of the inverse map,
@@ -131,6 +137,13 @@ def normalize_image(img: torch.Tensor) -> torch.Tensor:
     mean = constant(IMAGENET_MEAN, "float32", img.device)
     std = constant(IMAGENET_STD, "float32", img.device)
     return (img.float() / 255.0 - mean) / std
+
+
+def normalize_2d_kp(kp_2d, crop_size: int = 224, inv: bool = False):
+    """[0, crop) <-> [-1, 1] (the reference's normalize_2d_kp)."""
+    if not inv:
+        return 2.0 * kp_2d / crop_size - 1.0
+    return (kp_2d + 1.0) * crop_size / 2.0
 
 
 def generate_patch_image(cvimg: np.ndarray, c_x, c_y, bb_width, bb_height,

@@ -1,8 +1,9 @@
 """Track-level inference: frames -> crops -> bucketed GRNet -> numpy.
 
 Counterpart of gaitlab/pipeline/runner.py for one card in float32. Frames
-arrive in chunks (from memory or image files, `ingest_chunk` at a time, or
-as a video reader decodes them) and are cropped on the device (small
+arrive in chunks (from memory, from image files through the prefetching
+native loader, `ingest_chunk` at a time, or as a video reader decodes
+them) and are cropped on the device (small
 frames: only full frames cross to the card) or with cv2 on the host (large
 frames: only 224^2 crops cross). The model runs at a small set of batch
 sizes ("buckets"), with the tail padded by repeating its last crop, so
@@ -35,7 +36,7 @@ import torch
 from gaitlab_torch.device import upload
 from gaitlab_torch.nn.grnet import GRNet
 from gaitlab_torch.pipeline import crop as crop_mod
-from gaitlab_torch.pipeline import video
+from gaitlab_torch.pipeline import loader
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 450)
 OUTPUT_KEYS = ("theta", "verts", "kp_2d", "kp_3d")
@@ -131,7 +132,7 @@ class GRNetRunner:
             return tuple(frames_or_paths.shape[1:3])
         if hasattr(frames_or_paths, "image_hw"):
             return tuple(frames_or_paths.image_hw)
-        return tuple(video.load_frames(list(frames_or_paths)[:1]).shape[1:3])
+        return tuple(loader.image_size(list(frames_or_paths)[0]))
 
     def _crop_stream(self, frames_or_paths, bboxes: np.ndarray,
                      scale: Optional[float] = None):
@@ -140,22 +141,24 @@ class GRNetRunner:
         (video.VideoChunkReader) or a list of image paths."""
         scale = self.bbox_scale if scale is None else scale
         n = len(bboxes)
+        hh, ww = self._frame_hw(frames_or_paths)
+        crop_on = self.crop_on
+        if crop_on == "auto":
+            crop_on = ("device" if hh * ww <= 2 * self.crop_size ** 2
+                       else "host")
+        device = self.model.device
         if isinstance(frames_or_paths, np.ndarray):
             chunks = (frames_or_paths[s:s + self.ingest_chunk]
                       for s in range(0, n, self.ingest_chunk))
         elif hasattr(frames_or_paths, "image_hw"):
             chunks = iter(frames_or_paths)
         else:
-            frames_or_paths = paths = list(frames_or_paths)
-            chunks = (video.load_frames(paths[s:s + self.ingest_chunk])
-                      for s in range(0, n, self.ingest_chunk))
-        hh, ww = self._frame_hw(frames_or_paths)
-        frame_hw = hh * ww
-        crop_on = self.crop_on
-        if crop_on == "auto":
-            crop_on = ("device" if frame_hw <= 2 * self.crop_size ** 2
-                       else "host")
-        device = self.model.device
+            # image paths: chunk i+1 is decoded on the loader's worker while
+            # chunk i is cropped; into pinned memory when the frames go to
+            # the card
+            chunks = iter(loader.PrefetchLoader(
+                frames_or_paths, chunk=self.ingest_chunk,
+                pin=crop_on == "device" and device.type == "cuda"))
         # a reader with reuse_buffers=True hands out views that its next
         # chunk rewrites: both crops have read a chunk before the next is
         # decoded (the upload to the card copies it into pinned memory at

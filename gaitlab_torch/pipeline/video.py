@@ -238,6 +238,28 @@ def video_to_images(vid_file: str, img_folder: Optional[str] = None,
     return img_folder
 
 
+def images_to_video(img_folder: str, output_vid_file: str,
+                    fps: float = 30.0) -> None:
+    """Encode `<folder>/%06d.png` to an mp4 (cv2, mp4v)."""
+    import cv2
+
+    names = sorted(f for f in os.listdir(img_folder)
+                   if f.endswith((".png", ".jpg")))
+    if not names:
+        raise ValueError(f"no frames in {img_folder}")
+    first = cv2.imread(osp.join(img_folder, names[0]))
+    h, w = first.shape[:2]
+    os.makedirs(osp.dirname(output_vid_file) or ".", exist_ok=True)
+    writer = cv2.VideoWriter(output_vid_file, cv2.VideoWriter_fourcc(*"mp4v"),
+                             fps, (w, h))
+    try:
+        for name in names:
+            writer.write(cv2.imread(osp.join(img_folder, name)))
+    finally:
+        writer.release()
+    print(f"Video saved to \"{output_vid_file}\"")
+
+
 def list_image_files(image_folder: str) -> list[str]:
     """Sorted frame paths of a folder (.png / .jpg)."""
     return sorted(

@@ -132,11 +132,16 @@ TRACKED = ["--vid_file", "x.mp4", "--tracking_path", "t.pkl"]
 
 
 @pytest.mark.parametrize("argv", [
-    TRACKED,  # video output is on unless --save_vid is passed
-    *([*TRACKED, "--save_vid", *flag] for flag in (
-        ["--mesh_render"], ["--display"], ["--save_obj"],
-        ["--precision", "high"], ["--precision", "default"],
-        ["--parallel", "dp"]))])
+    [*TRACKED, *flags] for flags in (
+        # video output (on unless --save_vid is passed), --mesh_render and
+        # --save_obj are ported; precision and parallel modes still raise
+        ["--precision", "high"],
+        ["--save_vid", "--precision", "high"],
+        ["--save_vid", "--precision", "default"],
+        ["--save_vid", "--parallel", "dp"],
+        ["--save_vid", "--parallel", "pp"],
+        ["--mesh_render", "--precision", "default"],
+        ["--save_obj", "--parallel", "dp"])])
 def test_unported_paths_raise(argv):
     with pytest.raises(NotImplementedError, match="not ported"):
         pt_demo.main(pt_demo.build_parser().parse_args(argv))
@@ -197,4 +202,6 @@ print(" ".join(names))
         "core.filters", "nn.yolo", "pipeline.detect", "pipeline.fetch",
         "pipeline.smoothing", "pipeline.tracks", "pipeline.video",
         "nn.gait", "pipeline.stream", "gait.features", "gait.classify",
-        "api")} <= names
+        "api", "pipeline.loader", "render.raster", "render.raster_torch",
+        "render.vis", "render.overlay", "render.export", "render.fbx",
+        "cli.fbx_output", "utils")} <= names
