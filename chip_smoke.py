@@ -82,12 +82,26 @@ Phases, each of which exits non-zero on failure:
              decode of the clip's PNGs against cv2's, and the runner on
              frame paths (PrefetchLoader) against the same frames as an
              array, with no difference allowed
+ 10. batchgen the clinical joint database with phase 3's checkpoint, on
+             BG_CLIPS at 1280x720 (cropped on the host): OpenPose .mat
+             skeletons -> `openpose.load_openpose_anno` on the card, every
+             medoid_1 call held against its CPU run, and medoid_1's ms at
+             N = 10,000 on card and CPU; then `batch_generation` from the
+             PNG folder (the main path), with --stream, and as two shard
+             workers (--num_shards 2) whose every kernel call is held
+             against the plain version on its own inputs: shard schema,
+             finite joints, no failed clip, --stream and the merged
+             workers against the one-worker runs, frames/s of each run
+             and by stage (PNG extraction, crop+model with the --stream
+             decode, flush), and the bytes read back per frame with
+             fetch=("kp_3d",) against the default fetch
 Two lines before the last list every kernel as JSON: launches_by_path
 holds the launches of each main path, phase 6's `--smooth` demo
-("demo_smooth"), phase 8's two-pass `analyze_video` ("api_gait") and
-phase 9's default demo ("demo_render"), each counted from 0 just before
-its run; launches is their sum; max_abs_err is the largest over phases
-2, 6 and 8. The line before the last holds the card's name and power limit, and the
+("demo_smooth"), phase 8's two-pass `analyze_video` ("api_gait"), phase
+9's default demo ("demo_render") and phase 10's batch_generation from
+the folder ("batchgen"), each counted from 0 just before its run;
+launches is their sum; max_abs_err is the largest over phases 2, 6, 8
+and 10. The line before the last holds the card's name and power limit, and the
 last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX or of the gaitlab package.
@@ -155,6 +169,17 @@ ZBUF_REPS = 10
 ZBUF_MIN_AGREEMENT = 0.999
 ZBUF_ATOL = 1e-5
 EXPORT_ATOL = 1e-5  # the CPU tests' tolerance for export floats
+BG_W, BG_H = 1280, 720  # a clinic's camera frame: cropped on the host
+# (name, fps, frames written, annotation rows or None): 30 fps resampled to
+# 20 (120 frames); 20 fps with an annotation 4 frames short (bboxes
+# realigned); no annotation (skipped)
+BG_CLIPS = (("a001b001c001d001", 30.0, 180, 120),
+            ("a001b001c001d002", 20.0, 100, 96),
+            ("a001b001c001d003", 20.0, 40, None))
+MEDOID_N = 10_000  # one MAX_seqlen clip's joints
+# medoid card against CPU: float32 sums in two orders may pick either of
+# two near-tied points; their float64 sums must then agree this closely
+MEDOID_RTOL = 1e-6
 
 
 def log(*a):
@@ -1713,6 +1738,320 @@ def render_phase(det_vid: str, ckpt: str, workdir: str, checked: dict,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: batch_generation, the clinical joint database
+# ---------------------------------------------------------------------------
+
+def make_batchgen_corpus(workdir: str) -> tuple[str, str]:
+    """BG_CLIPS at BG_W x BG_H in a folder, and OpenPose-style .mat
+    skeletons for them (x, y normalised to the frame): the walker; in the
+    first clip also a smaller person as confident as the walker, so both
+    get a bbox and the larger one is kept; no skeleton for the last clip;
+    and one empty annotation, which is listed as bad. Returns (the clip
+    folder, the annotation folder)."""
+    import cv2
+    import numpy as np
+    import scipy.io as sio
+
+    vids = osp.join(workdir, "bg_vids")
+    annos = osp.join(workdir, "bg_openpose")
+    os.makedirs(vids)
+    os.makedirs(annos)
+    rng = np.random.default_rng(SEED)
+    bg = rng.integers(40, 70, size=(BG_H, BG_W, 3)).astype(np.uint8)
+    # joint offsets inside a 120 x 400 px walker, fixed for the corpus
+    offsets = np.stack([rng.uniform(0, 120, 25), rng.uniform(0, 400, 25)], 1)
+    for k, (name, fps, n, rows) in enumerate(BG_CLIPS):
+        writer = cv2.VideoWriter(osp.join(vids, f"{name}.mp4"),
+                                 cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                                 (BG_W, BG_H))
+        for i in range(n):
+            frame = bg.copy()
+            x = 400 + int(400 * i / n)
+            cv2.rectangle(frame, (x, 200), (x + 120, 600),
+                          (210 - 30 * k, 190, 180), -1)
+            cv2.circle(frame, (x + 60, 180), 40, (200, 170, 160), -1)
+            writer.write(frame)
+        writer.release()
+        if rows is None:
+            continue
+        t = np.arange(rows) * n / rows  # the frames the annotation saw
+        sk = np.zeros((1, rows, 25, 3))
+        sk[0, :, :, 0] = (400 + 400 * t / n)[:, None] + offsets[None, :, 0]
+        sk[0, :, :, 1] = 200 + offsets[None, :, 1]
+        sk[0, :, :, :2] += rng.normal(0, 3, (rows, 25, 2))
+        sk[0, :, :, 2] = rng.uniform(0.6, 0.95, (rows, 25))
+        if k == 0:  # a second, smaller person
+            small = sk[0].copy()
+            small[:, :, :2] = 100 + 0.5 * (small[:, :, :2] - 100)
+            small[:, :, 2] = rng.uniform(0.6, 0.95, (rows, 25))
+            sk = np.concatenate([sk, small[None]])
+        sk[..., 0] /= BG_W
+        sk[..., 1] /= BG_H
+        sio.savemat(osp.join(annos, f"{name}.mat"), {"skeleton": sk})
+    sio.savemat(osp.join(annos, "a001b009c001d001.mat"),
+                {"skeleton": np.zeros((0, 0, 0, 0))})
+    return vids, annos
+
+
+def medoid_row_sum(points, i: int) -> float:
+    import numpy as np
+
+    p = np.asarray(points, np.float64)
+    return float(np.linalg.norm(p - p[i], axis=1).sum())
+
+
+@contextlib.contextmanager
+def medoid_check():
+    """Every medoid_1 call on the card is held against the same call on
+    the CPU: the index equal, or both indices' sums of distances, in
+    float64, within MEDOID_RTOL. Yields the list of (N, card index, CPU
+    index)."""
+    from gaitlab_torch.pipeline import medoids
+
+    original = medoids.medoid_1
+    seen = []
+
+    def checked(points, chunk=1024, device=None):
+        idx = original(points, chunk, device)
+        cpu = original(points, chunk, "cpu")
+        if idx != cpu:
+            a, b = medoid_row_sum(points, idx), medoid_row_sum(points, cpu)
+            if abs(a - b) > MEDOID_RTOL * b:
+                raise AssertionError(f"medoid_1 on {len(points)} points: card "
+                                     f"{idx} ({a}), CPU {cpu} ({b})")
+        seen.append((len(points), idx, cpu))
+        return idx
+
+    medoids.medoid_1 = checked
+    try:
+        yield seen
+    finally:
+        medoids.medoid_1 = original
+
+
+def medoid_timing() -> None:
+    """medoid_1 at N = MEDOID_N (one clip of MAX_seqlen frames x 25
+    joints, (x, y, confidence)) on the card and on the CPU."""
+    import numpy as np
+
+    from gaitlab_torch.cli.batch_generation import MAX_seqlen
+    from gaitlab_torch.pipeline.medoids import medoid_1
+
+    rng = np.random.default_rng(SEED)
+    pts = np.concatenate([rng.normal(960, 150, (MEDOID_N, 2)),
+                          rng.uniform(0.1, 1.0, (MEDOID_N, 1))], 1
+                         ).astype(np.float32)
+    ms = {}
+    for dev in ("cuda", "cpu"):
+        medoid_1(pts, device=dev)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            idx = medoid_1(pts, device=dev)  # an int: the host waits
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[dev] = (statistics.median(times), idx)
+    log(f"[batchgen] medoid_1 at N = {MEDOID_N} ({MAX_seqlen} frames x 25 "
+        f"joints): card {ms['cuda'][0]:.3f} ms, CPU {ms['cpu'][0]:.3f} ms "
+        f"(host clock, median of 5, upload and read-back included); index "
+        f"card {ms['cuda'][1]}, CPU {ms['cpu'][1]}")
+    if ms["cuda"][1] != ms["cpu"][1]:
+        a, b = (medoid_row_sum(pts, ms[d][1]) for d in ("cuda", "cpu"))
+        if abs(a - b) > MEDOID_RTOL * b:
+            raise AssertionError(f"medoid_1 at N = {MEDOID_N}: {a} vs {b}")
+
+
+def check_shards(paths: list) -> dict:
+    """Read shard files: the schema, finite joints; {vid_name: (frames,
+    bbox, joints3D)}."""
+    import numpy as np
+
+    from gaitlab_torch.cli.demo import load_pickle
+
+    out = {}
+    for p in paths:
+        db = load_pickle(p)
+        if set(db) != {"vid_name", "bbox", "joints3D"}:
+            raise AssertionError(f"{p}: keys {sorted(db)}")
+        n = len(db["vid_name"])
+        if db["bbox"].shape != (n, 4) or db["joints3D"].shape != (n, 25, 3) \
+                or db["joints3D"].dtype != np.float32 \
+                or not np.all(np.isfinite(db["joints3D"])):
+            j = db["joints3D"]
+            raise AssertionError(f"{p}: bbox {db['bbox'].shape}, joints3D "
+                                 f"{j.shape} {j.dtype}")
+        for name in dict.fromkeys(db["vid_name"].tolist()):
+            sel = db["vid_name"] == name
+            if name in out:
+                raise AssertionError(f"{name} in two shards")
+            out[name] = (int(sel.sum()), db["bbox"][sel], db["joints3D"][sel])
+    return out
+
+
+def same_database(tag: str, got: dict, want: dict) -> float:
+    """The same clips, frames and bboxes; joints within PAD_ATOL x max(1,
+    max|joints|). Returns the largest joint difference."""
+    import numpy as np
+
+    if list(got) != list(want):
+        raise AssertionError(f"{tag}: clips {list(got)} vs {list(want)}")
+    worst = 0.0
+    for name, (n, bbox, joints) in want.items():
+        gn, gbox, gjoints = got[name]
+        if gn != n or not np.array_equal(gbox, bbox):
+            raise AssertionError(f"{tag} {name}: frames or bboxes differ")
+        err = float(np.abs(gjoints - joints).max())
+        limit = PAD_ATOL * max(1.0, float(np.abs(joints).max()))
+        if err > limit:
+            raise AssertionError(f"{tag} {name}: joints differ by {err:.3e} "
+                                 f"> {limit:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def readback_bytes(runner_kw: dict, model, frames, bboxes
+                   ) -> tuple[float, float]:
+    """Bytes a run_track reads back per frame (the arrays ForwardStream's
+    finish returns), and the run's ms."""
+    from gaitlab_torch.pipeline import runner as runner_mod
+
+    finish = runner_mod.ForwardStream.finish
+    got = []
+
+    def spy(self):
+        out = finish(self)
+        got.append(sum(v.nbytes for v in out.values()))
+        return out
+
+    runner_mod.ForwardStream.finish = spy
+    try:
+        t0 = time.perf_counter()
+        runner_mod.GRNetRunner(model, **runner_kw).run_track(frames, bboxes,
+                                                             scale=1.1)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        runner_mod.ForwardStream.finish = finish
+    return sum(got) / len(frames), ms
+
+
+def batchgen_phase(ckpt: str, workdir: str) -> tuple[dict, dict]:
+    """The OpenPose ingestion on the card (every medoid held against the
+    CPU), then batch_generation from the PNG folder (the main path: its
+    launches are counted from 0 and its kernel shapes must all be checked),
+    with --stream, and as two shard workers (with every kernel call held
+    against the plain version on its own inputs). Returns the main path's
+    launches and each kernel's largest checked error."""
+    import numpy as np
+
+    from gaitlab_torch.cli import batch_generation as bg
+    from gaitlab_torch.cli import demo
+    from gaitlab_torch.ops.blendshapes import blendshapes
+    from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
+    from gaitlab_torch.pipeline import openpose, video
+
+    vids, annos = make_batchgen_corpus(workdir)
+    bbox_path = osp.join(workdir, "bg_bbox.json")
+    with medoid_check() as seen:
+        t0 = time.perf_counter()
+        coarse = openpose.load_openpose_anno(
+            annos, bbox_path, osp.join(workdir, "bg_bad.json"),
+            img_w=BG_W, img_h=BG_H)
+        wall = time.perf_counter() - t0
+    bad = demo.load_pickle(osp.join(workdir, "bg_bad.json"))
+    log(f"[batchgen] load_openpose_anno on the card: {wall * 1e3:.1f} ms; "
+        f"clips {sorted(coarse)}, bad {bad}; medoid_1 calls (N, card index, "
+        f"CPU index) {seen}")
+    want_clips = [c[0] for c in BG_CLIPS if c[3] is not None]
+    if sorted(coarse) != want_clips or bad != ["a001b009c001d001.mat"] or \
+            len(seen) != 3:  # two skeletons in the first clip
+        raise AssertionError("load_openpose_anno: unexpected clips or calls")
+    for name in want_clips:
+        log(f"[batchgen] {name}: bbox [cx, cy, w, h] "
+            f"{np.round(coarse[name][0], 2).tolist()}")
+    medoid_timing()
+
+    fns = {"blendshapes": blendshapes,
+           "keypoint_attention": keypoint_attention_fused}
+    stages = {"load_model": (demo, "load_model"),
+              "extract PNG": (bg, "video_to_images_fps20"),
+              "crop+model": (bg, "run_grnet_on_frames"),
+              "flush": (bg, "_flush_db")}
+    base = ["--vid_folder", vids, "--bbox_path", bbox_path,
+            "--pretrained_file", ckpt]
+    os.makedirs(osp.join(workdir, "bg_out"))
+    runs, seen = {}, {}
+    for tag, extra in (("folder", []), ("stream", ["--stream"]),
+                       ("shard0", ["--stream", "--num_shards", "2",
+                                   "--shard_id", "0"]),
+                       ("shard1", ["--stream", "--num_shards", "2",
+                                   "--shard_id", "1"])):
+        out = osp.join(workdir, "bg_out", f"{tag.rstrip('01')}.json")
+        with stage_timers(stages) as spent, \
+                kernel_spies(check=tag.startswith("shard")) as seen[tag]:
+            for fn in fns.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            n_files = bg.main(bg.build_parser().parse_args(
+                base + ["--outpath", out] + extra))
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in fns.items()}
+        # this run's files: <out>_k.json, or <out>.w{id}_k.json for a worker
+        prefix = osp.basename(out)[:-5] + (
+            f".w{tag[-1]}_" if tag.startswith("shard") else "_")
+        files = sorted(f for f in os.listdir(osp.dirname(out))
+                       if f.startswith(prefix))
+        if any("failed" in f for f in files) or len(files) != n_files:
+            raise AssertionError(f"{tag}: files {files}, {n_files} reported")
+        db = check_shards([osp.join(osp.dirname(out), f) for f in files])
+        frames = sum(v[0] for v in db.values())
+        runs[tag] = (db, launches, wall, n_files)
+        clips = [(k, v[0]) for k, v in db.items()]
+        log(f"[batchgen] batch_generation {' '.join(extra) or '(folder)'}: "
+            f"{n_files} shard file(s), clips {clips}, {wall:.2f} s = {frames / wall:.1f} frames/s; stages "
+            f"{ {k: round(v, 4) for k, v in spent.items()} } (frames/s "
+            f"{ {k: round(frames / v, 1) for k, v in spent.items() if v} }), "
+            f"the rest {wall - sum(spent.values()):.4f} s; kernel launches "
+            f"{launches}")
+        if min(launches.values()) <= 0 or \
+                launches["blendshapes"] != launches["keypoint_attention"]:
+            raise AssertionError(f"{tag}: kernel launches {launches}")
+    one = runs["folder"][0]
+    want_frames = [round(n * bg.EXTRACT_FPS / fps)
+                   for _, fps, n, rows in BG_CLIPS if rows is not None]
+    if list(one) != want_clips or [v[0] for v in one.values()] != want_frames:
+        raise AssertionError(f"folder run: clips and frames "
+                             f"{[(k, v[0]) for k, v in one.items()]}")
+    err = same_database("--stream vs folder", runs["stream"][0], one)
+    log(f"[batchgen] --stream against the folder run: the same clips, "
+        f"frames and bboxes; joints max abs diff {err:.3e} m")
+    shards = {**runs["shard0"][0], **runs["shard1"][0]}
+    err = same_database("two workers vs one", dict(sorted(shards.items())),
+                        runs["stream"][0])
+    log(f"[batchgen] two shard workers merged against the one-worker "
+        f"--stream run: the same clips, frames and bboxes; joints max abs "
+        f"diff {err:.3e} m")
+    calls = {k: seen["shard0"]["calls"][k] + seen["shard1"]["calls"][k]
+             for k in fns}
+    errs = hold_calls("batchgen", calls, seen["folder"]["calls"],
+                      runs["folder"][1])
+    hold_calls("batchgen --stream", calls, seen["stream"]["calls"],
+               runs["stream"][1])
+    # bytes read back per frame: the database's fetch against the default
+    model = demo.build_model(ckpt)
+    name, fps, n, _ = BG_CLIPS[0]
+    frames = np.stack(list(video.read_frames(osp.join(vids, f"{name}.mp4"),
+                                             fps=bg.EXTRACT_FPS)))
+    bboxes = np.repeat(coarse[name][:1], len(frames), axis=0)
+    joints, ms_j = readback_bytes({"fetch": ("kp_3d",)}, model, frames, bboxes)
+    full, ms_f = readback_bytes({}, model, frames, bboxes)
+    log(f"[batchgen] read back per frame: fetch=('kp_3d',) {joints:.1f} B, "
+        f"the default fetch {full:.1f} B ({full / joints:.1f}x); run_track "
+        f"of {len(frames)} frames {ms_j:.1f} ms against {ms_f:.1f} ms")
+    if joints != 29 * 3 * 4:
+        raise AssertionError(f"fetch=('kp_3d',) read back {joints} B a frame")
+    return runs["folder"][1], errs
+
+
 def main() -> int:
     import torch
 
@@ -1765,13 +2104,14 @@ def main() -> int:
         gait_launches, gait_errs = gait_phase(ckpt, workdir, trackfile,
                                               det_vid)
         render_launches = render_phase(det_vid, ckpt, workdir, checked, card)
+        bg_launches, bg_errs = batchgen_phase(ckpt, workdir)
     paths = {"demo_smooth": launches, "api_gait": gait_launches,
-             "demo_render": render_launches}
+             "demo_render": render_launches, "batchgen": bg_launches}
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         r["max_abs_err"] = max(r["max_abs_err"], path_errs[r["name"]],
-                               gait_errs[r["name"]])
+                               gait_errs[r["name"]], bg_errs[r["name"]])
 
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",

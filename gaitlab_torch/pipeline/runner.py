@@ -13,12 +13,13 @@ model's device.
 Forwards go through a `ForwardStream` session (`open_stream`): crop chunks
 are fed as they come, a forward runs on the session's worker thread
 whenever a largest bucket has filled, and the outputs stay on the device
-until `finish` reads them back once. Host data crosses to the card as
-asynchronous copies from pinned memory (`device.upload`). With the gait
-branch each forward also takes the chunk's bbox and image-centre rows and
-its real-frame count (n_valid); the track-level gait estimate (pred_avg)
-of each forward is then averaged with weights equal to its real frames,
-and pred_phase is concatenated.
+until `finish` reads back once the keys of `fetch` (all by default;
+batch_generation takes only kp_3d, not the vertices). Host data crosses
+to the card as asynchronous copies from pinned memory (`device.upload`).
+With the gait branch each forward also takes the chunk's bbox and
+image-centre rows and its real-frame count (n_valid); the track-level
+gait estimate (pred_avg) of each forward is then averaged with weights
+equal to its real frames, and pred_phase is concatenated.
 """
 
 from __future__ import annotations
@@ -55,6 +56,9 @@ class GRNetRunner:
     # "device": crop on the card; "host": cv2 on the CPU; "auto": host for
     # frames larger than twice the crop area, the device otherwise
     crop_on: str = "auto"
+    # output keys read back to the host (None: all); the gait keys
+    # pred_avg and pred_phase always come back when the model makes them
+    fetch: Optional[Sequence[str]] = None
     parallel: Optional[str] = None
 
     def __post_init__(self):
@@ -107,14 +111,21 @@ class GRNetRunner:
         return ForwardStream(self)
 
     def _forward_stream(self, crop_chunks, bbox=None, cimg=None) -> dict:
-        """Feed each crop chunk with its slice of the track's rows."""
+        """Feed each crop chunk with its slice of the track's rows. When
+        the chunks fail (a decode error, a frame count short of the
+        bboxes), the session is closed first: a forward's error, if any,
+        raises ahead of the chunks' own."""
         session = self.open_stream()
         s = 0
-        for chunk in crop_chunks:
-            e = s + chunk.shape[0]
-            session.feed(chunk, bbox=None if bbox is None else bbox[s:e],
-                         cimg=None if cimg is None else cimg[s:e])
-            s = e
+        try:
+            for chunk in crop_chunks:
+                e = s + chunk.shape[0]
+                session.feed(chunk, bbox=None if bbox is None else bbox[s:e],
+                             cimg=None if cimg is None else cimg[s:e])
+                s = e
+        except BaseException:
+            session.close()
+            raise
         return session.finish()
 
     def forward_crops(self, crops, bbox=None, cimg=None) -> dict:
@@ -175,7 +186,7 @@ class GRNetRunner:
                     crop_size=self.crop_size, device=device)
             s = e
         if s != n:
-            raise ValueError(f"{s} frames for {n} bboxes")
+            raise FrameCountError(f"{s} frames for {n} bboxes")
 
     def _host_crop(self, chunk: np.ndarray, bboxes: np.ndarray,
                    scale: float) -> np.ndarray:
@@ -216,14 +227,23 @@ class GRNetRunner:
         return track_outputs(out)
 
 
+class FrameCountError(ValueError):
+    """A track's frame source gave another number of frames than it has
+    bboxes (a video whose decode ends before its reported frame count)."""
+
+
+_TRACK_KEYS = (("verts", "verts"), ("kp_3d", "joints3d"),
+               ("kp_2d", "joints2d")) + tuple((k, k) for k in GAIT_KEYS)
+
+
 def track_outputs(out: dict) -> dict:
-    """Forward outputs (theta, verts, kp_3d, ...) -> run_track's keys."""
-    if not out:
-        return {}
-    res = {"pred_cam": out["theta"][:, :3], "pose": out["theta"][:, 3:75],
-           "betas": out["theta"][:, 75:], "verts": out["verts"],
-           "joints3d": out["kp_3d"], "joints2d": out["kp_2d"]}
-    res.update({k: out[k] for k in GAIT_KEYS if k in out})
+    """Forward outputs (theta, verts, kp_3d, ...) -> run_track's keys, for
+    the keys that were fetched."""
+    res = {}
+    if "theta" in out:
+        res.update(pred_cam=out["theta"][:, :3], pose=out["theta"][:, 3:75],
+                   betas=out["theta"][:, 75:])
+    res.update({dst: out[src] for src, dst in _TRACK_KEYS if src in out})
     return res
 
 
@@ -245,8 +265,9 @@ class ForwardStream:
     the worker, that wait overlaps the caller's host work (decode,
     detection, crops). A fed chunk is read by the worker later, so the
     caller must not write to it afterwards. finish() launches the tail,
-    waits for the worker, reads every output back once and merges. An
-    error of a forward raises at the next feed() or at finish()."""
+    waits for the worker, reads the runner's `fetch` keys back once and
+    merges; close() ends a session that will not finish. An error of a
+    forward raises at the next feed() or at finish()."""
 
     def __init__(self, runner: GRNetRunner):
         self.runner = runner
@@ -340,23 +361,37 @@ class ForwardStream:
         while self._buffered >= self.max_b:
             self._dispatch(self.max_b)
 
+    def _join(self) -> None:
+        if self._thread is not None:
+            self._queue.put(None)
+            self._thread.join()
+            self._thread = None
+
+    def close(self) -> None:
+        """End the session without the tail or a read-back: wait for the
+        queued forwards and drop their outputs. A forward's error raises
+        here."""
+        self._done = True
+        self._join()
+        self._outs = []
+        self._check_err()
+
     def finish(self) -> dict:
-        """Launch the tail, wait for the worker, read the outputs back once,
-        merge them."""
+        """Launch the tail, wait for the worker, read the fetched outputs
+        back once, merge them."""
         if self._done:
             raise RuntimeError("finish() called twice")
         self._done = True
         if self._buffered:
             self._dispatch(self._buffered)
-        if self._thread is not None:
-            self._queue.put(None)
-            self._thread.join()
-            self._thread = None
+        self._join()
         self._check_err()
         if not self._outs:  # no frame fed
             return {}
-        fetched = [{k: v.cpu().numpy() for k, v in out.items()}
-                   for out in self._outs]
+        fetch = self.runner.fetch
+        want = None if fetch is None else set(fetch) | set(GAIT_KEYS)
+        fetched = [{k: v.cpu().numpy() for k, v in out.items()
+                    if want is None or k in want} for out in self._outs]
         self._outs = []
         merged = {}
         for k in fetched[0]:

@@ -1,9 +1,9 @@
 """Host-side video decode and frame-folder IO (cv2).
 
-Counterpart of the parts of gaitlab/pipeline/video.py that the demo calls:
-frame extraction to a PNG folder, folder listing and loading, and decoding
-straight from the container in chunks (`VideoChunkReader`, the --stream
-path).
+Counterpart of gaitlab/pipeline/video.py: frame extraction to a PNG
+folder (optionally resampled, as batch_generation extracts at 20 fps),
+trimming, folder listing and loading, and decoding straight from the
+container in chunks (`VideoChunkReader`, the --stream path).
 """
 
 from __future__ import annotations
@@ -208,34 +208,62 @@ class VideoChunkReader:
 
 
 def video_to_images(vid_file: str, img_folder: Optional[str] = None,
-                    return_info: bool = False):
+                    return_info: bool = False, fps: Optional[float] = None):
     """Extract frames to `<folder>/%06d.png`, 1-based (the reference's
-    frame-folder contract). The default folder lies under the system's
-    temporary directory."""
+    frame-folder contract), resampled to `fps` as `read_frames` selects
+    them (all frames when None). The default folder lies under the
+    system's temporary directory."""
     import cv2
 
     if img_folder is None:
         img_folder = osp.join(tempfile.gettempdir(),
                               osp.basename(vid_file).replace(".", "_") + "_mpt")
     os.makedirs(img_folder, exist_ok=True)
-    cap = cv2.VideoCapture(vid_file)
-    if not cap.isOpened():
-        raise FileNotFoundError(f"cannot open video: {vid_file}")
     n, shape = 0, None
-    try:
-        while True:
-            ok, frame = cap.read()
-            if not ok:
-                break
-            n += 1
-            shape = frame.shape
-            cv2.imwrite(osp.join(img_folder, f"{n:06d}.png"), frame)
-    finally:
-        cap.release()
+    for n, frame in enumerate(read_frames(vid_file, fps=fps), start=1):
+        shape = frame.shape
+        cv2.imwrite(osp.join(img_folder, f"{n:06d}.png"),
+                    cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
     print(f"Images saved to \"{img_folder}\"")
     if return_info:
         return img_folder, n, shape
     return img_folder
+
+
+def trim_video(vid_file: str, start_time: float, end_time: float,
+               output_vid_file: str) -> int:
+    """Cut [start_time, end_time) seconds out of a video into a new mp4v
+    file with cv2 (the reference's trim_videos shells out to an ffmpeg
+    binary). Returns the number of frames written."""
+    import cv2
+
+    cap = cv2.VideoCapture(vid_file)
+    if not cap.isOpened():
+        raise FileNotFoundError(f"cannot open video: {vid_file}")
+    fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+    w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+    h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+    first = int(round(start_time * fps))
+    last = int(round(end_time * fps))  # exclusive
+    os.makedirs(osp.dirname(output_vid_file) or ".", exist_ok=True)
+    writer = cv2.VideoWriter(output_vid_file, cv2.VideoWriter_fourcc(*"mp4v"),
+                             fps, (w, h))
+    n = 0
+    try:
+        for idx in range(last):
+            ok, frame = cap.read()
+            if not ok:
+                break
+            if idx >= first:
+                writer.write(frame)
+                n += 1
+    finally:
+        cap.release()
+        writer.release()
+    return n
+
+
+trim_videos = trim_video  # the reference's name
 
 
 def images_to_video(img_folder: str, output_vid_file: str,

@@ -21,9 +21,12 @@ import torch
 from gaitlab.body import smpl as jax_smpl
 from gaitlab.cli import demo as jax_demo
 from gaitlab.nn.grnet import GRNet as JaxGRNet
+from gaitlab_torch.cli import batch_generation as pt_bg
 from gaitlab_torch.cli import demo as pt_demo
 from gaitlab_torch.device import resolve_device
 from gaitlab_torch.nn.grnet import GRNet as PtGRNet
+from gaitlab_torch.pipeline import medoids as pt_medoids
+from gaitlab_torch.pipeline import openpose as pt_openpose
 from test_torch_models import assert_close, tiny_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -166,6 +169,19 @@ def test_entry_points_never_fall_back_to_the_cpu(clip):
          "--output_folder", str(clip[0] / "nocuda")])
     with pytest.raises(RuntimeError, match="--cpu_only"):
         pt_demo.main(args)
+    # batch_generation, the OpenPose ingestion and the medoid, before they
+    # read anything
+    bg_args = pt_bg.build_parser().parse_args(
+        ["--vid_folder", str(clip[0]), "--bbox_path", trackfile,
+         "--outpath", str(clip[0] / "nocuda_db.json")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt_bg.main(bg_args)
+    assert not list(clip[0].glob("nocuda_db*"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt_openpose.load_openpose_anno(str(clip[0]), "unused.json",
+                                       "unused_bad.json")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt_medoids.medoid_1(np.zeros((3, 3), np.float32))
     # the chip smoke test refuses to run and prints no result
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -204,4 +220,6 @@ print(" ".join(names))
         "nn.gait", "pipeline.stream", "gait.features", "gait.classify",
         "api", "pipeline.loader", "render.raster", "render.raster_torch",
         "render.vis", "render.overlay", "render.export", "render.fbx",
-        "cli.fbx_output", "utils")} <= names
+        "cli.fbx_output", "utils", "cli.batch_generation", "pipeline.medoids",
+        "pipeline.openpose", "pipeline.boxes", "pipeline.datasets",
+        "pipeline.data", "weights.torch_import")} <= names
