@@ -95,13 +95,33 @@ Phases, each of which exits non-zero on failure:
              and by stage (PNG extraction, crop+model with the --stream
              decode, flush), and the bytes read back per frame with
              fetch=("kp_3d",) against the default fetch
+ 11. serve   pinned serving with phase 3's checkpoint: `cli.serve export`
+             (torch.export) for cuda and cpu at buckets 128 and 256 (export
+             seconds, program and weights.npz sizes; every program's
+             state_dict empty, one node of each kernel's op in each graph);
+             `cli.serve run` on walk_det.mp4 with the live model's forward
+             refused (both kernels launch from the loaded programs, every
+             call held against its plain version) against `demo --onepass`
+             (persons, frame ids, boxes; joints3d, verts, pose within
+             PAD_ATOL); ServingModel.call against the live forward at batch
+             128 (outputs, ms with CUDA events, pinned/live); the cpu
+             program on CPU_FRAMES frames against the card; MAX-GRNet
+             exported at bucket 256 on 200 real frames (a padded tail)
+             against the live gait runner, and n_valid read at run time
+ 12. hmr     the legacy HMR (ResNet-50, 3 regressor steps, SMPL, random
+             weights) at batch 128: blendshapes held against its plain
+             version, ms/batch, card against CPU on CPU_FRAMES frames, and
+             render/vis.py::regressor_output_from_features card against CPU
 Two lines before the last list every kernel as JSON: launches_by_path
 holds the launches of each main path, phase 6's `--smooth` demo
 ("demo_smooth"), phase 8's two-pass `analyze_video` ("api_gait"), phase
-9's default demo ("demo_render") and phase 10's batch_generation from
-the folder ("batchgen"), each counted from 0 just before its run;
-launches is their sum; max_abs_err is the largest over phases 2, 6, 8
-and 10. The line before the last holds the card's name and power limit, and the
+9's default demo ("demo_render"), phase 10's batch_generation from
+the folder ("batchgen"), phase 11's `cli.serve run` ("serve_run") and
+phase 12's HMR forward ("hmr"), each counted from 0 just before its run;
+launches is their sum; max_abs_err is the largest over phases 2, 6, 8,
+10, 11 and 12. Kernel calls are seen at the ops' CUDA implementations, so
+calls from inside a loaded torch.export program are counted and checked
+too. The line before the last holds the card's name and power limit, and the
 last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX or of the gaitlab package.
@@ -180,6 +200,11 @@ MEDOID_N = 10_000  # one MAX_seqlen clip's joints
 # medoid card against CPU: float32 sums in two orders may pick either of
 # two near-tied points; their float64 sums must then agree this closely
 MEDOID_RTOL = 1e-6
+SERVE_BUCKETS = (128, 256)  # walk_det.mp4's tracks of 97 and 140 frames
+SERVE_TIMED = 128
+SERVE_GAIT_BUCKET, SERVE_GAIT_FRAMES = 256, 200  # a padded tail
+SERVE_OPS = ("gaitlab.keypoint_attention_fused.default",
+             "gaitlab.blendshapes.default")
 
 
 def log(*a):
@@ -802,25 +827,24 @@ def stage_timers(targets: dict):
 
 @contextlib.contextmanager
 def kernel_spies(check: bool):
-    """Wrap each kernel's wrapper where the path calls it (pare_head's
-    keypoint_attention_fused, smpl's blendshapes) to record the input
-    shapes of every call on the card. With `check`, each call's result is
+    """Wrap each kernel's launch, the CUDA implementation of its custom op
+    (ops/*.py::_launch), which eager code and loaded torch.export programs
+    alike reach through torch.ops.gaitlab.*, to record the input shapes of
+    every call on the card. With `check`, each call's result is
     also held against the plain version on the same inputs, and the first
     smooth_pose call's arguments and result are kept. Yields
     {"calls": {kernel: [(shapes, errors or None)]}, "smooth": ...}, where
     errors holds the largest |kernel - plain|, the largest |plain|, and
     kernel's and plain's largest error against the plain version in
     float64."""
-    from gaitlab_torch.body import smpl
     from gaitlab_torch.device import float32_math
-    from gaitlab_torch.nn import pare_head
     from gaitlab_torch.ops import blendshapes as b2
     from gaitlab_torch.ops import keypoint_attention as b1
     from gaitlab_torch.pipeline import smoothing
 
-    sites = {"keypoint_attention": (pare_head, "keypoint_attention_fused",
+    sites = {"keypoint_attention": (b1, "_launch",
                                     b1.keypoint_attention_plain),
-             "blendshapes": (smpl, "blendshapes", b2.blendshapes_plain)}
+             "blendshapes": (b2, "_launch", b2.blendshapes_plain)}
     seen = {"calls": {name: [] for name in sites}, "smooth": None}
     originals = {name: getattr(owner, attr)
                  for name, (owner, attr, _) in sites.items()}
@@ -1172,26 +1196,29 @@ def gait_padding(model, crops, bbox, cimg) -> None:
             raise AssertionError(f"padding moves the gait branch's {k}")
 
 
+def events_ms(fn, reps: int = 5) -> float:
+    """Median device time of one call of a forward (CUDA events), after
+    two warm-up calls."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def gait_loop(plain, gait, crops, bbox, cimg) -> dict:
     """Model-loop frames/s (CUDA events, median of 5) at each of
     GAIT_LOOP_BUCKETS with and without the gait branch, and a profile of
     one gait bucket. Returns MAX-GRNet's ms per bucket."""
-    import torch
-
-    def events_ms(fn, reps=5):
-        for _ in range(2):
-            fn()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
     gait_ms = {}
     for b in GAIT_LOOP_BUCKETS:
         x, bb, ci = crops[:b], bbox[:b], cimg[:b]
@@ -2052,6 +2079,330 @@ def batchgen_phase(ckpt: str, workdir: str) -> tuple[dict, dict]:
     return runs["folder"][1], errs
 
 
+# ---------------------------------------------------------------------------
+# phase 11: pinned serving (torch.export programs)
+# ---------------------------------------------------------------------------
+
+def host_crops(frames, bbox):
+    """The runner's 224-pixel cv2 crops on the host (uint8), one per frame
+    of `frames` with its row of `bbox`."""
+    import numpy as np
+
+    from gaitlab_torch.pipeline.crop import generate_patch_image
+
+    return np.stack([generate_patch_image(f, *bb[:4], 224, 224, scale=1.0)[0]
+                     for f, bb in zip(frames, bbox)])
+
+
+def close_enough(tag: str, got: dict, want: dict, keys, tol: float,
+                 scaled: bool = True) -> None:
+    """max|got - want| <= tol (x max(1, max|want|) when `scaled`) for each
+    key, logged."""
+    import numpy as np
+
+    for k in keys:
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        err = float(np.abs(a - b).max())
+        limit = tol * max(1.0, float(np.abs(b).max())) if scaled else tol
+        log(f"[{tag}] {k} {a.shape}: max abs {err:.3e} (limit {limit:.3e})")
+        if not (a.shape == b.shape and err <= limit
+                and np.all(np.isfinite(a))):
+            raise AssertionError(f"{tag}: {k} disagrees")
+
+
+@contextlib.contextmanager
+def no_model_code():
+    """Any call of the live model's forward raises: a serving run's kernel
+    launches must come from the loaded programs."""
+    from gaitlab_torch.nn import grnet
+
+    saved = grnet.GRNetCore.forward, grnet.BucketForward.forward
+
+    def refuse(*args, **kw):
+        raise AssertionError("the live model ran in a serving run")
+
+    grnet.GRNetCore.forward = grnet.BucketForward.forward = refuse
+    try:
+        yield
+    finally:
+        grnet.GRNetCore.forward, grnet.BucketForward.forward = saved
+
+
+def check_programs(art: str, manifest: dict, loaded: list) -> None:
+    """Every program file (loaded by the ServingModels of each platform):
+    its size, an empty state_dict, one node of each kernel's op."""
+    sizes = {}
+    for sm in loaded:
+        for b, ep in sm.exported.items():
+            fname = manifest["files"][str(b)][sm.device.type]
+            targets = [str(n.target) for n in ep.graph.nodes
+                       if n.op == "call_function"]
+            ops = {t: targets.count(t) for t in SERVE_OPS}
+            if ep.state_dict or set(ops.values()) != {1}:
+                raise AssertionError(f"{fname}: {len(ep.state_dict)} "
+                                     f"weights, op nodes {ops}")
+            sizes[fname] = os.path.getsize(osp.join(art, fname))
+    if len(sizes) != 2 * len(manifest["files"]):
+        raise AssertionError(f"programs {sorted(sizes)} of {manifest}")
+    weights = os.path.getsize(osp.join(art, manifest["weights"]))
+    log(f"[serve] program files (bytes) {sizes}; weights.npz {weights} "
+        f"bytes; every state_dict empty, every graph one node of each of "
+        f"{sorted(SERVE_OPS)}")
+
+
+def serve_run(art: str, det_vid: str, ckpt: str, workdir: str
+              ) -> tuple[dict, dict]:
+    """`cli.serve run` on walk_det.mp4 (the main path: launches counted
+    from 0, every kernel call held against the plain version, the live
+    model's forward refused), against `demo --onepass` on the same
+    checkpoint. Returns the launches and each kernel's largest error."""
+    import numpy as np
+
+    from gaitlab_torch.cli import demo
+    from gaitlab_torch.cli import serve as serve_cli
+    from gaitlab_torch.ops.blendshapes import blendshapes
+    from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
+
+    fns = {"blendshapes": blendshapes,
+           "keypoint_attention": keypoint_attention_fused}
+    out_dir = osp.join(workdir, "serve_out")
+    with kernel_spies(check=True) as seen, no_model_code():
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rc = serve_cli.main_cli(["run", "--artifacts", art, "--vid_file",
+                                 det_vid, "--detector", "median_bg",
+                                 "--output_folder", out_dir])
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in fns.items()}
+    served = demo.load_pickle(osp.join(out_dir, "walk_det_serve_output.pkl"))
+    log(f"[serve] cli.serve run --detector median_bg: rc {rc}, {wall:.2f} s "
+        f"(every kernel call checked); kernel launches {launches}; persons "
+        f"[first, end) frames {spans(served)}")
+    if rc != 0 or min(launches.values()) <= 0 or \
+            launches["blendshapes"] != launches["keypoint_attention"]:
+        raise AssertionError(f"serve run: rc {rc}, launches {launches}")
+    errs = hold_calls("serve", seen["calls"], seen["calls"], launches)
+    for pid, person in served.items():
+        check_person(pid, person)
+
+    saved, _, demo_s = drive_demo(
+        ["--vid_file", det_vid, "--detector", "median_bg", "--ckpt", ckpt,
+         "--onepass"], osp.join(workdir, "serve_demo"), "walk_det_mp4")
+    log(f"[serve] demo --onepass on the same checkpoint: {demo_s:.2f} s; "
+        f"persons {spans(saved)}")
+
+    def persons(res):  # SORT numbers tracks on across runs
+        return sorted(res.values(), key=lambda p: int(p["frame_ids"][0]))
+
+    if len(served) != len(saved):
+        raise AssertionError("serve run and demo --onepass: other persons")
+    for i, (got, want) in enumerate(zip(persons(served), persons(saved))):
+        for k in ("frame_ids", "bboxes"):
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"serve run person {i}: other {k}")
+        close_enough(f"serve person {i} vs demo --onepass", got, want,
+                     ("joints3d", "verts", "pose"), PAD_ATOL)
+    return launches, errs
+
+
+def serve_pinned_vs_live(card, host, ckpt: str, u8) -> dict:
+    """ServingModel.call (`card`, the cuda programs) against the live model
+    at batch SERVE_TIMED (the same crops, the outputs, ms with CUDA events),
+    then the cpu programs (`host`) on CPU_FRAMES frames against the card's.
+    Returns each kernel's largest checked error."""
+    import torch
+
+    from gaitlab_torch.cli.demo import build_model
+    from gaitlab_torch.device import upload
+    from gaitlab_torch.pipeline.crop import normalize_image
+
+    model = build_model(ckpt)
+    x = upload(u8[:SERVE_TIMED], "cuda")
+    with kernel_spies(check=True) as seen:
+        got = card.call(None, None, u8[:SERVE_TIMED])
+        live = {k: v[0].cpu().numpy() for k, v in
+                model.forward(normalize_image(x))[0].items()}
+    errs = hold_calls("serve call", seen["calls"], seen["calls"],
+                      {k: len(v) for k, v in seen["calls"].items()})
+    close_enough(f"serve ServingModel.call vs the live forward at batch "
+                 f"{SERVE_TIMED}", got, live, ("theta", "verts", "kp_3d"),
+                 PAD_ATOL)
+    pinned_ms = events_ms(lambda: card._run(SERVE_TIMED, card.variables,
+                                            card.smpl, x), reps=20)
+    live_ms = events_ms(lambda: model.forward(normalize_image(x)), reps=20)
+    log(f"[serve] batch {SERVE_TIMED} (uint8 crops on the card -> outputs, "
+        f"float32, TF32 off; CUDA events, median of 20): pinned program "
+        f"{pinned_ms:.2f} ms, live model {live_ms:.2f} ms, pinned/live "
+        f"{pinned_ms / live_ms:.4f}")
+    profiled("serve", f"the pinned program at batch {SERVE_TIMED}",
+             lambda: card._run(SERVE_TIMED, card.variables, card.smpl, x), 10)
+    profiled("serve", f"the live model at batch {SERVE_TIMED}",
+             lambda: model.forward(normalize_image(x)), 10)
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cpu_out = host.call(None, None, u8[:CPU_FRAMES])
+    cpu_s = time.perf_counter() - t0
+    card_out = card.call(None, None, u8[:CPU_FRAMES])
+    log(f"[serve] the cpu program on {CPU_FRAMES} frames (bucket "
+        f"{host.buckets[0]}) on the host: {cpu_s:.2f} s; against the card:")
+    close_enough("serve cpu program vs card", card_out, cpu_out,
+                 ("kp_3d", "verts"), CPU_ATOL_M, scaled=False)
+    return errs
+
+
+def serve_gait(ckpt: str, workdir: str, u8, bbox, cimg) -> dict:
+    """MAX-GRNet exported at SERVE_GAIT_BUCKET (the card's program) and run
+    on SERVE_GAIT_FRAMES real frames, a padded tail, against the live gait
+    runner; then the same rows all real, whose pred_avg must move. Returns
+    each kernel's largest checked error."""
+    from gaitlab_torch import api, serve
+    from gaitlab_torch.device import upload
+    from gaitlab_torch.pipeline.crop import normalize_image
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    b, n = SERVE_GAIT_BUCKET, SERVE_GAIT_FRAMES
+    model, _ = api.load_pipeline(ckpt=ckpt, use_gait_feat=True)
+    runner = GRNetRunner(model, buckets=(b,))
+    art = osp.join(workdir, "serve_gait")
+    t0 = time.perf_counter()
+    serve.save_artifacts(runner, art, platforms=("cuda",))
+    export_s = time.perf_counter() - t0
+    fname = f"forward_b{b}.cuda.pt2"
+    log(f"[serve] MAX-GRNet exported at bucket {b} (cuda): {export_s:.2f} s,"
+        f" {os.path.getsize(osp.join(art, fname))} bytes")
+    sm = serve.load_artifacts(art)
+    with kernel_spies(check=True) as seen:
+        got = sm.call(None, None, u8[:n], bbox=bbox[:n], cimg=cimg[:n])
+        live = runner.forward_crops(normalize_image(upload(u8[:n], "cuda")),
+                                    bbox=bbox[:n], cimg=cimg[:n])
+        full = sm.call(None, None, u8[:b], bbox=bbox[:b], cimg=cimg[:b])
+    errs = hold_calls("serve gait", seen["calls"], seen["calls"],
+                      {k: len(v) for k, v in seen["calls"].items()})
+    got["pred_avg"] = got["pred_avg"][0]
+    close_enough(f"serve gait, {n} frames at bucket {b}, program vs live",
+                 got, live, ("pred_avg", "pred_phase", "kp_3d"), PAD_ATOL)
+    moved = float(abs(full["pred_avg"][0] - got["pred_avg"]).max())
+    log(f"[serve] gait n_valid {b} against {n} on the first {n} rows: "
+        f"pred_avg moves by {moved:.3e}")
+    if not moved > PAD_ATOL:
+        raise AssertionError("the gait program ignores n_valid")
+    return errs
+
+
+def serve_phase(ckpt: str, workdir: str, trackfile: str, det_vid: str
+                ) -> tuple[dict, dict]:
+    """Phase 11. Returns the serve run's launches and each kernel's largest
+    checked error."""
+    import torch
+
+    from gaitlab_torch import serve
+    from gaitlab_torch.cli import serve as serve_cli
+
+    art = osp.join(workdir, "serve_art")
+    t0 = time.perf_counter()
+    rc = serve_cli.main_cli(["export", "--artifacts", art, "--ckpt", ckpt,
+                             "--buckets", ",".join(map(str, SERVE_BUCKETS))])
+    export_s = time.perf_counter() - t0
+    with open(osp.join(art, "manifest.json")) as f:
+        manifest = json.load(f)
+    log(f"[serve] cli.serve export --platforms cuda,cpu --buckets "
+        f"{SERVE_BUCKETS}: rc {rc}, {export_s:.2f} s for "
+        f"{len(SERVE_BUCKETS) * 2} programs; manifest "
+        f"{ {k: v for k, v in manifest.items() if k != 'files'} }")
+    if rc != 0 or manifest["platforms"] != ["cuda", "cpu"]:
+        raise AssertionError("cli.serve export failed")
+    t0 = time.perf_counter()
+    card = serve.load_artifacts(art)
+    load_s = time.perf_counter() - t0
+    host = serve.load_artifacts(art, device="cpu")
+    log(f"[serve] load_artifacts: the card's {len(card.buckets)} programs "
+        f"and weights in {load_s:.2f} s")
+    check_programs(art, manifest, [card, host])
+    launches, errs = serve_run(art, det_vid, ckpt, workdir)
+    torch.cuda.empty_cache()
+
+    frames, bbox, cimg = gait_track(workdir, trackfile)
+    u8 = host_crops(frames[:SERVE_GAIT_BUCKET], bbox)
+    for more in (serve_pinned_vs_live(card, host, ckpt, u8),
+                 serve_gait(ckpt, workdir, u8, bbox, cimg)):
+        errs = {k: max(v, more[k]) for k, v in errs.items()}
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the legacy HMR
+# ---------------------------------------------------------------------------
+
+def hmr_phase(workdir: str, trackfile: str) -> tuple[dict, dict]:
+    """HMR (ResNet-50 + the 3-step regressor + SMPL, random weights from
+    SEED) at batch LOOP_BATCH on the card: the main path (launches counted
+    from 0, every call held against the plain version), ms/batch, card
+    against CPU, and regressor_output_from_features card against CPU.
+    Returns the launches and each kernel's largest checked error."""
+    import numpy as np
+    import torch
+
+    from gaitlab_torch.device import upload
+    from gaitlab_torch.nn.spin import HMR
+    from gaitlab_torch.ops.blendshapes import blendshapes
+    from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
+    from gaitlab_torch.pipeline.crop import normalize_image
+    from gaitlab_torch.render import vis
+
+    frames, bbox, _ = gait_track(workdir, trackfile)
+    x = normalize_image(upload(host_crops(frames[:LOOP_BATCH], bbox),
+                               "cuda"))
+    hmr = HMR.create(seed=SEED)
+    fns = {"blendshapes": blendshapes,
+           "keypoint_attention": keypoint_attention_fused}
+    with kernel_spies(check=True) as seen:
+        for fn in fns.values():
+            fn.launches = 0
+        out = hmr.forward(x)[0]
+        launches = {name: fn.launches for name, fn in fns.items()}
+    errs = hold_calls("hmr", {"blendshapes": seen["calls"]["blendshapes"]},
+                      seen["calls"], launches)
+    errs["keypoint_attention"] = 0.0
+    n_params = sum(p.numel() for p in hmr.module.parameters())
+    log(f"[hmr] HMR (ResNet-50, 3 regressor steps, SMPL) on {hmr.device}: "
+        f"{n_params / 1e6:.2f} M parameters; batch {LOOP_BATCH}: kernel "
+        f"launches {launches}; kp_3d {tuple(out['kp_3d'].shape)}")
+    if launches != {"blendshapes": 1, "keypoint_attention": 0} or not all(
+            torch.isfinite(out[k]).all() for k in ("theta", "verts",
+                                                   "kp_3d")):
+        raise AssertionError(f"HMR forward: launches {launches} or "
+                             f"non-finite outputs")
+    ms = events_ms(lambda: hmr.forward(x), reps=10)
+    log(f"[hmr] HMR.forward at batch {LOOP_BATCH} (float32, TF32 off; CUDA "
+        f"events, median of 10): {ms:.2f} ms/batch = "
+        f"{LOOP_BATCH / ms * 1e3:.1f} frames/s")
+
+    cpu = HMR.create(seed=SEED, device="cpu")
+    host = cpu.forward(x[:CPU_FRAMES].cpu())[0]
+    card = hmr.forward(x[:CPU_FRAMES])[0]
+    close_enough(f"hmr card vs CPU, {CPU_FRAMES} frames",
+                 {k: v.cpu() for k, v in card.items()}, host,
+                 ("kp_3d", "verts"), CPU_ATOL_M, scaled=False)
+    with torch.inference_mode():
+        feats = hmr.module.backbone(x[:6].permute(0, 3, 1, 2).contiguous())
+    feats = feats.cpu().numpy().reshape(2, 3, -1)
+    got = dict(zip(("verts", "cam"),
+                   vis.regressor_output_from_features(feats, hmr=hmr)))
+    want = dict(zip(("verts", "cam"),
+                    vis.regressor_output_from_features(feats, hmr=cpu)))
+    log(f"[hmr] regressor_output_from_features on the card: verts "
+        f"{got['verts'].shape}, cam {got['cam'].shape}; against the CPU:")
+    close_enough("hmr regressor_output_from_features", got, want,
+                 ("verts", "cam"), CPU_ATOL_M, scaled=False)
+    if not np.isfinite(got["verts"]).all():
+        raise AssertionError("regressor_output_from_features: non-finite")
+    return launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -2105,13 +2456,18 @@ def main() -> int:
                                               det_vid)
         render_launches = render_phase(det_vid, ckpt, workdir, checked, card)
         bg_launches, bg_errs = batchgen_phase(ckpt, workdir)
+        serve_launches, serve_errs = serve_phase(ckpt, workdir, trackfile,
+                                                 det_vid)
+        hmr_launches, hmr_errs = hmr_phase(workdir, trackfile)
     paths = {"demo_smooth": launches, "api_gait": gait_launches,
-             "demo_render": render_launches, "batchgen": bg_launches}
+             "demo_render": render_launches, "batchgen": bg_launches,
+             "serve_run": serve_launches, "hmr": hmr_launches}
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         r["max_abs_err"] = max(r["max_abs_err"], path_errs[r["name"]],
-                               gait_errs[r["name"]], bg_errs[r["name"]])
+                               gait_errs[r["name"]], bg_errs[r["name"]],
+                               serve_errs[r["name"]], hmr_errs[r["name"]])
 
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",

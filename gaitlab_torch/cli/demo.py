@@ -373,17 +373,19 @@ def run_onepass(args, model, video_file, orig_width, orig_height,
     from gaitlab_torch.pipeline import detect
     from gaitlab_torch.pipeline import stream as stream_mod
     from gaitlab_torch.pipeline.runner import GRNetRunner
+    from gaitlab_torch.utils import profile_trace
 
     runner = GRNetRunner(model, bbox_scale=1.0, **_runner_kwargs(args))
     grnet_time = time.time()
-    res = stream_mod.run_video_onepass(
-        runner, video_file, detector=detect.get_detector(
-            args.detector, input_size=args.yolo_img_size,
-            batch=args.tracker_batch_size, device=model.device))
-    grnet_results = {
-        pid: _person_output(out, out["bboxes"], out["frames"], pid, args,
-                            model, orig_width, orig_height)
-        for pid, out in res.items()}
+    with profile_trace():
+        res = stream_mod.run_video_onepass(
+            runner, video_file, detector=detect.get_detector(
+                args.detector, input_size=args.yolo_img_size,
+                batch=args.tracker_batch_size, device=model.device))
+        grnet_results = {
+            pid: _person_output(out, out["bboxes"], out["frames"], pid,
+                                args, model, orig_width, orig_height)
+            for pid, out in res.items()}
     num_frames_list = sorted({int(f) for r in res.values()
                               for f in r["frames"]})
     _report(len(num_frames_list), grnet_time, total_time)
@@ -396,24 +398,27 @@ def run_tracks(args, model, tracking_results, image_folder, video_file,
     from the video when there is no folder (--stream)."""
     from gaitlab_torch.pipeline import video
     from gaitlab_torch.pipeline.runner import GRNetRunner
+    from gaitlab_torch.utils import profile_trace
 
     runner = GRNetRunner(model, bbox_scale=1.0, **_runner_kwargs(args))
     image_files = (np.array(video.list_image_files(image_folder))
                    if image_folder else None)
     print("Running Model on each tracklet...")
     grnet_results = {}
-    for person_id in list(tracking_results.keys()):
-        bboxes = np.array(tracking_results[person_id]["bbox"], np.float32)
-        frames = np.asarray(tracking_results[person_id]["frames"])
-        if image_files is None:  # --stream: decode from the video
-            source = video.VideoChunkReader(video_file, frame_ids=frames,
-                                            reuse_buffers=True)
-        else:
-            source = list(image_files[frames])
-        out = runner.run_track(source, bboxes)
-        grnet_results[person_id] = _person_output(
-            out, bboxes, frames, person_id, args, model, orig_width,
-            orig_height)
+    with profile_trace():
+        for person_id in list(tracking_results.keys()):
+            bboxes = np.array(tracking_results[person_id]["bbox"],
+                              np.float32)
+            frames = np.asarray(tracking_results[person_id]["frames"])
+            if image_files is None:  # --stream: decode from the video
+                source = video.VideoChunkReader(video_file, frame_ids=frames,
+                                                reuse_buffers=True)
+            else:
+                source = list(image_files[frames])
+            out = runner.run_track(source, bboxes)
+            grnet_results[person_id] = _person_output(
+                out, bboxes, frames, person_id, args, model, orig_width,
+                orig_height)
     return grnet_results
 
 

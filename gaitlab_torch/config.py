@@ -38,6 +38,9 @@ class ConfigNode(dict):
             data = yaml.safe_load(f) or {}
         self._merge(data)
 
+    def merge_from_other_cfg(self, other) -> None:
+        self._merge(dict(other))
+
     def _merge(self, data: dict) -> None:
         for k, v in data.items():
             if k not in self:

@@ -39,13 +39,21 @@ def upload(x, device) -> torch.Tensor:
     return x.pin_memory().to(device, non_blocking=True)
 
 
-@functools.lru_cache(maxsize=None)
 def constant(values: tuple, dtype: str, device) -> torch.Tensor:
     """A tensor of fixed values (an index list, a normalisation constant)
     on `device`, made once per device and shared: never write to it. A
     Python list turned into a card tensor, or used to index one, is copied
     to the card at every call, and that copy waits for the card's queue.
-    Made outside inference mode, so that autograd may save it."""
+    Made outside inference mode, so that autograd may save it. While
+    `torch.export` traces, the tensor is made on `device` as a constant of
+    the program and not cached (the trace's tensors are fake)."""
+    if torch.compiler.is_exporting():
+        return torch.tensor(np.asarray(values, dtype), device=device)
+    return _constant(values, dtype, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, dtype: str, device) -> torch.Tensor:
     with torch.inference_mode(False):
         return upload(np.asarray(values, dtype), device)
 

@@ -12,23 +12,23 @@ does by default and torch does not is written out here:
     filled with the dtype's minimum (not -inf);
   * Flax's GRUCell has no b_hr / b_hz: the GRU's `bias_hh` holds
     [0, 0, b_hn] (the converter writes it so).
-The GRU is torch.nn.GRU (cuDNN on the card); gaitlab runs it as a scan
-outside any Pallas kernel. With `seq_lengths` only the real frames go
-through it (each sequence's valid prefix, one call each; the runner
-sends one track), so the backward direction starts at the last real
-frame and the final states are the carries there, as in Flax; outputs at
-padded frames are zeros here (Flax leaves them non-zero), and nothing
-downstream reads them: the runner slices them off and temporal attention
-masks them as keys. `seq_lengths` are host ints, and the forward copies
-nothing from the host to the card: such a copy would wait for the card's
-queue (the backbone's work) before the GRU's per-step kernels could be
-launched.
+The GRU is torch.nn.GRU's (cuDNN on the card); gaitlab runs it as a scan
+outside any Pallas kernel. With `seq_lengths` (a tensor of real-frame
+counts, read on the device: the runner pads a track to a bucket, and a
+serving program takes the count at run time) every layer and direction
+runs as one single-layer GRU over all T frames, the reverse direction on
+each sequence's valid prefix reversed in place; so the backward direction
+starts at the last real frame and the final states are the carries there,
+as in Flax. Outputs at padded frames are zeros here (Flax leaves them
+non-zero), and nothing downstream reads them: the runner slices them off
+and temporal attention masks them as keys. The same code runs eagerly and
+under `torch.export`, and it copies nothing from the host to the card.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -50,8 +50,9 @@ def _gelu(x):
 class BiGRU(nn.GRU):
     """Multi-layer bidirectional GRU, batch first.
 
-    forward(x (B,T,C), seq_lengths (B,) ints or None) -> (outputs (B,T,2H),
-    final states (B, num_layers*2*H) ordered [l0_fwd, l0_bwd, l1_fwd, ...]).
+    forward(x (B,T,C), seq_lengths (B,) int tensor or ints, or None) ->
+    (outputs (B,T,2H), final states (B, num_layers*2*H) ordered [l0_fwd,
+    l0_bwd, l1_fwd, ...]).
     """
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 2):
@@ -64,18 +65,48 @@ class BiGRU(nn.GRU):
                     p[:2 * h] = 0.0  # Flax has no b_hr, b_hz
 
     def forward(self, x: torch.Tensor,
-                seq_lengths: Optional[Sequence[int]] = None):
+                seq_lengths: Optional[torch.Tensor] = None):
         b, t, _ = x.shape
         if seq_lengths is None:
             out, h = super().forward(x)
-        else:
-            outs, finals = [], []
-            for i, n in enumerate(seq_lengths):
-                o, f = super().forward(x[i:i + 1, :int(n)])
-                outs.append(F.pad(o, (0, 0, 0, t - int(n))))
-                finals.append(f)
-            out, h = torch.cat(outs), torch.cat(finals, dim=1)
-        return out, h.permute(1, 0, 2).reshape(b, -1)
+            return out, h.permute(1, 0, 2).reshape(b, -1)
+        n = torch.as_tensor(seq_lengths).to(x.device).reshape(b, 1)
+        steps = torch.arange(t, device=x.device)[None]
+        valid = (steps < n)[..., None]                      # (B,T,1)
+        # frame t of the reversed valid prefix, padded frames in place
+        rev = torch.where(steps < n, n - 1 - steps, steps)[..., None]
+        h0 = x.new_zeros(1, b, self.hidden_size)
+        out, finals = x, []
+        for layer in range(self.num_layers):
+            dirs = []
+            for sfx in ("", "_reverse"):
+                w = [getattr(self, f"{k}_l{layer}{sfx}") for k in
+                     ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+                if x.device.type == "cuda":
+                    w = _packed(w)
+                xi = out.gather(1, rev.expand(b, t, out.shape[-1])) \
+                    if sfx else out
+                o, _ = torch._VF.gru(xi, h0, w, True, 1, 0.0, False, False,
+                                     True)
+                if sfx:  # back in frame order; the carry ends at frame 0
+                    o = o.gather(1, rev.expand(b, t, o.shape[-1]))
+                    finals.append(o[:, 0])
+                else:    # the carry at the last real frame
+                    finals.append(o.gather(1, (n - 1)[..., None].expand(
+                        b, 1, o.shape[-1]))[:, 0])
+                dirs.append(o)
+            out = torch.cat(dirs, dim=-1) * valid
+        return out, torch.cat(finals, dim=-1)
+
+
+def _packed(tensors: list) -> list:
+    """Views of one new buffer holding `tensors` back to back: cuDNN's
+    layout of a one-layer GRU's weights, which it then reads in place
+    (from the module's own parameters it would pack them itself, and warn
+    at every call)."""
+    flat = torch.cat([w.reshape(-1) for w in tensors])
+    return [v.view(w.shape) for v, w in zip(
+        flat.split([w.numel() for w in tensors]), tensors)]
 
 
 class GaitFeatEncoder(nn.Module):
@@ -101,7 +132,7 @@ class GaitFeatEncoder(nn.Module):
             self.phase_out = nn.Linear(fc_size, 4)
 
     def forward(self, x: torch.Tensor, cparams: torch.Tensor,
-                seq_lengths: Optional[Sequence[int]] = None):
+                seq_lengths: Optional[torch.Tensor] = None):
         b, t, j, c = x.shape
         xc = self.cparam_mlp(cparams[:, :, None, :].expand(b, t, j, 3))
         x = x + xc
@@ -250,12 +281,12 @@ class FeatCorrector(nn.Module):
                 h_size, num_heads, use_jwff, num_joints + 1, c))
 
     def forward(self, x: torch.Tensor, cparams: torch.Tensor,
-                seq_lengths: Optional[Sequence[int]] = None):
+                seq_lengths: Optional[torch.Tensor] = None):
         b, t, j, c = x.shape
         frame_mask = None
-        if seq_lengths is not None:  # built on the device from host ints
-            steps = torch.arange(t, device=x.device)
-            frame_mask = torch.stack([steps < int(n) for n in seq_lengths])
+        if seq_lengths is not None:
+            n = torch.as_tensor(seq_lengths).to(x.device).reshape(b, 1)
+            frame_mask = torch.arange(t, device=x.device)[None] < n
         pred_avg, pred_phase, _ = self.featnet(x, cparams, seq_lengths)
 
         # the two phase 2-vectors on the unit circle

@@ -28,6 +28,7 @@ from gaitlab_torch.device import float32_math, resolve_device, upload
 from gaitlab_torch.nn.gait import FeatCorrector, camera_reparam
 from gaitlab_torch.nn.hrnet import HRNetCfg, PoseHighResolutionNet
 from gaitlab_torch.nn.pare_head import PareHead
+from gaitlab_torch.pipeline.crop import normalize_image
 
 
 class GRNetCore(nn.Module):
@@ -58,11 +59,12 @@ class GRNetCore(nn.Module):
     def forward(self, images: torch.Tensor,
                 bbox: Optional[torch.Tensor] = None,
                 cimg: Optional[torch.Tensor] = None,
-                n_valid: Optional[int] = None) -> dict:
+                n_valid: Optional[torch.Tensor] = None) -> dict:
         """images: (N, 3, 224, 224) normalized crops of one track. bbox (N,4)
-        and cimg (N,2) feed the gait branch; n_valid (an int) says how many
-        leading frames are real when the runner pads the track to a bucket:
-        padded frames then stay out of the gait GRU and attention."""
+        and cimg (N,2) feed the gait branch; n_valid (a 0-d int tensor, read
+        on the device) says how many leading frames are real when the
+        runner pads the track to a bucket: padded frames then stay out of
+        the gait GRU and attention."""
         features = self.backbone(images)
         if not self.use_gait_feat:
             return self.head(features)
@@ -74,7 +76,7 @@ class GRNetCore(nn.Module):
         cparams = camera_reparam(patt["pred_cam"], bbox, cimg)
         corrected, pred_avg, pred_phase = self.pfeat_corrector(
             feats["point_local_feat"][None], cparams[None],
-            None if n_valid is None else [int(n_valid)])
+            None if n_valid is None else torch.as_tensor(n_valid).reshape(1))
         out = self.head.predict(corrected[0], feats["cam_shape_feats"])
         out["pred_segm_mask"] = feats["pred_segm_mask"]
         out["pred_avg"] = pred_avg
@@ -121,6 +123,38 @@ def vp_regress(smpl_params: body_smpl.SMPLParams, patt_output: dict,
     return [out]
 
 
+BUCKET_KEYS = ("theta", "verts", "kp_2d", "kp_3d", "pred_avg", "pred_phase")
+
+
+class BucketForward(nn.Module):
+    """The runner's forward at one bucket, with the weights as inputs:
+    (state_dict of a GRNetCore, SMPLParams, NHWC crops[, bbox, cimg,
+    n_valid]) -> per-frame theta (N,85), verts, kp_2d, kp_3d (and the gait
+    branch's pred_phase (N,4)), and pred_avg (1,3). With `raw_uint8` the
+    crops are uint8 and normalized here. The trunk is held outside the
+    module's parameters, so a `torch.export` of it carries no weights."""
+
+    def __init__(self, core: GRNetCore, joint_mode: str = "spin2",
+                 raw_uint8: bool = True):
+        super().__init__()
+        self.__dict__["core"] = core  # not a submodule: no parameters
+        self.joint_mode = joint_mode
+        self.raw_uint8 = raw_uint8
+
+    def forward(self, state: dict, smpl: body_smpl.SMPLParams,
+                images: torch.Tensor, bbox: Optional[torch.Tensor] = None,
+                cimg: Optional[torch.Tensor] = None,
+                n_valid: Optional[torch.Tensor] = None) -> dict:
+        x = normalize_image(images) if self.raw_uint8 else images
+        kw = (dict(bbox=bbox, cimg=cimg, n_valid=n_valid)
+              if self.core.use_gait_feat else {})
+        patt = torch.func.functional_call(
+            self.core, state, (x.permute(0, 3, 1, 2).contiguous(),), kw)
+        out = vp_regress(smpl, patt, joint_mode=self.joint_mode)[0]
+        return {k: v if k == "pred_avg" else v[0]
+                for k, v in out.items() if k in BUCKET_KEYS}
+
+
 @dataclass
 class GRNet:
     """The trunk module, the SMPL tensors and the device they live on."""
@@ -154,7 +188,7 @@ class GRNet:
         """images: (B,T,3,H,W) or (T,3,H,W) crops, or NHWC (N,H,W,3), on the
         model's device. Runs in float32 with TF32 off. bbox (N,4) [cx,cy,w,h]
         and cimg (N,2) image centres (arrays or tensors) feed the gait
-        branch; n_valid marks the real frames of a padded track."""
+        branch; n_valid (an int) marks the real frames of a padded track."""
         if images.dim() == 5:  # (B,T,3,H,W)
             b = images.shape[0]
             x = images.reshape((-1,) + tuple(images.shape[2:]))
@@ -170,7 +204,8 @@ class GRNet:
                             self.device)
                   for k, v in (("bbox", bbox), ("cimg", cimg))
                   if v is not None}
-            kw["n_valid"] = n_valid
+            if n_valid is not None:
+                kw["n_valid"] = upload(torch.tensor(n_valid), self.device)
         with float32_math(), torch.inference_mode():
             patt = self.module(x.contiguous(), **kw)
             return vp_regress(self.smpl, patt, batch_size=b,

@@ -51,16 +51,21 @@ class HRNetCfg:
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, inplanes: int, planes: int):
+    """3x3, 3x3 residual block; `stride` on the first conv and on the
+    projection shortcut (ResNet's stages, nn/resnet.py)."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = conv(inplanes, planes, 3)
+        self.conv1 = conv(inplanes, planes, 3, stride)
         self.bn1 = batch_norm(planes)
         self.conv2 = conv(planes, planes, 3)
         self.bn2 = batch_norm(planes)
         self.relu = nn.ReLU(inplace=True)
-        self.downsample = (nn.Sequential(conv(inplanes, planes, 1),
+        self.downsample = (nn.Sequential(conv(inplanes, planes, 1, stride),
                                          batch_norm(planes))
-                           if inplanes != planes else None)
+                           if stride != 1 or inplanes != planes else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.downsample is None else self.downsample(x)
@@ -70,21 +75,24 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
+    """1x1, 3x3, 1x1 residual block; `stride` on the 3x3 conv (torchvision's
+    ResNet v1.5, as gaitlab's) and on the projection shortcut."""
+
     expansion = 4
 
-    def __init__(self, inplanes: int, planes: int):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
         out_ch = planes * self.expansion
         self.conv1 = conv(inplanes, planes, 1)
         self.bn1 = batch_norm(planes)
-        self.conv2 = conv(planes, planes, 3)
+        self.conv2 = conv(planes, planes, 3, stride)
         self.bn2 = batch_norm(planes)
         self.conv3 = conv(planes, out_ch, 1)
         self.bn3 = batch_norm(out_ch)
         self.relu = nn.ReLU(inplace=True)
-        self.downsample = (nn.Sequential(conv(inplanes, out_ch, 1),
+        self.downsample = (nn.Sequential(conv(inplanes, out_ch, 1, stride),
                                          batch_norm(out_ch))
-                           if inplanes != out_ch else None)
+                           if stride != 1 or inplanes != out_ch else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.downsample is None else self.downsample(x)

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from gaitlab_torch.ops.keypoint_attention import keypoint_attention  # noqa: F401
+
 BN_EPS = 1e-5  # torch BatchNorm2d default
 
 
@@ -57,14 +59,3 @@ class LocallyConnected(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = torch.einsum("...jc,jco->...jo", x, self.weight)
         return out if self.bias is None else out + self.bias
-
-
-def keypoint_attention(features: torch.Tensor,
-                       heatmaps: torch.Tensor) -> torch.Tensor:
-    """Softmax attention pooling (reference keypoint_attention.py:34-56).
-
-    features (B,H,W,C); heatmaps (B,H,W,J) raw part logits, both NHWC as in
-    gaitlab. Returns (B,J,C)."""
-    b, h, w, c = features.shape
-    attn = torch.softmax(heatmaps.reshape(b, h * w, -1), dim=1)
-    return torch.einsum("bpj,bpc->bjc", attn, features.reshape(b, h * w, c))

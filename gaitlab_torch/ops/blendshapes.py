@@ -5,8 +5,12 @@ gaitlab/ops/lbs_pallas.py::blendshapes. It multiplies on the tensor cores
 in 3xTF32 (each factor split into two TF32 parts, three products summed in
 FP32), which keeps float32 accuracy; on an H100 it is then bound by its
 28 MB of traffic (about 8.4 us at B = 128). The source note says how.
-`launch_plan` sizes its grid and shared memory. CPU tensors take the plain
-version.
+`launch_plan` sizes its grid and shared memory.
+
+The wrapper calls the custom op `gaitlab::blendshapes`, whose CUDA
+implementation is the kernel and whose CPU implementation is the plain
+version, so the device of the inputs picks one when the op runs: in eager
+code and inside a `torch.export` program alike (`serve.py`).
 """
 
 from __future__ import annotations
@@ -71,18 +75,33 @@ def blendshapes(v_template: torch.Tensor, shapedirs: torch.Tensor,
     """(V,3) + (V,3,S).(B,S) + (P,V*3).(B,P) -> (B,V,3) float32.
 
     On CUDA tensors this launches the kernel (or raises); on CPU tensors
-    it runs `blendshapes_plain`."""
+    it runs `blendshapes_plain`. Either way through the custom op
+    `torch.ops.gaitlab.blendshapes`."""
     args = (v_template, shapedirs, posedirs, betas, pose_feature)
-    if all(a.device.type == "cpu" for a in args):
-        return blendshapes_plain(*args)
+    if not all(a.device.type == "cpu" for a in args):
+        dev = v_template.device
+        if dev.type != "cuda" or any(a.device != dev for a in args):
+            raise ValueError("blendshapes: all inputs must be on one CUDA "
+                             f"device (got {[str(a.device) for a in args]})")
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        raise NotImplementedError("blendshapes: the kernel has no backward")
+    return torch.ops.gaitlab.blendshapes(*args)
+
+
+blendshapes.launches = 0
+
+
+def _launch(v_template: torch.Tensor, shapedirs: torch.Tensor,
+            posedirs: torch.Tensor, betas: torch.Tensor,
+            pose_feature: torch.Tensor) -> torch.Tensor:
+    """The op's CUDA implementation: checks, plan, one launch; counts it."""
+    args = (v_template, shapedirs, posedirs, betas, pose_feature)
     dev = v_template.device
     if dev.type != "cuda" or any(a.device != dev for a in args):
         raise ValueError("blendshapes: all inputs must be on one CUDA device "
                          f"(got {[str(a.device) for a in args]})")
     if any(a.dtype != torch.float32 or not a.is_contiguous() for a in args):
         raise ValueError("blendshapes: inputs must be contiguous float32")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        raise NotImplementedError("blendshapes: the kernel has no backward")
     v = v_template.shape[0]
     b, s = betas.shape
     p = pose_feature.shape[1]
@@ -109,4 +128,20 @@ def blendshapes(v_template: torch.Tensor, shapedirs: torch.Tensor,
     return out
 
 
-blendshapes.launches = 0
+@torch.library.custom_op("gaitlab::blendshapes", mutates_args=(),
+                         device_types="cuda")
+def _op(v_template: torch.Tensor, shapedirs: torch.Tensor,
+        posedirs: torch.Tensor, betas: torch.Tensor,
+        pose_feature: torch.Tensor) -> torch.Tensor:
+    return _launch(v_template, shapedirs, posedirs, betas, pose_feature)
+
+
+@_op.register_kernel("cpu")
+def _op_cpu(v_template, shapedirs, posedirs, betas, pose_feature):
+    return blendshapes_plain(v_template, shapedirs, posedirs, betas,
+                             pose_feature)
+
+
+@_op.register_fake
+def _op_fake(v_template, shapedirs, posedirs, betas, pose_feature):
+    return v_template.new_empty((betas.shape[0],) + tuple(v_template.shape))

@@ -6,8 +6,13 @@ card it is bound by the bytes of logits and features it must read (about
 0.1 ms at B = 128 on an H100); the source note says how the design meets
 that: each frame's positions are split over blocks that keep a running
 softmax and write partials, which a second launch merges. `launch_plan`
-sizes the split; the wrapper hands the kernel its scratch. CPU tensors take
-the plain version.
+sizes the split; the launch hands the kernel its scratch.
+
+The wrapper calls the custom op `gaitlab::keypoint_attention_fused`, whose
+CUDA implementation is the kernel and whose CPU implementation is the plain
+version, so the device of the inputs picks one when the op runs: in eager
+code and inside a `torch.export` program alike (`serve.py`), where the op
+is one node of the graph.
 
 The public signature is gaitlab's NHWC one. The kernel reads through
 strides, so the head passes its NCHW tensors as permuted views and no copy
@@ -20,7 +25,6 @@ from typing import NamedTuple
 
 import torch
 
-from gaitlab_torch.nn.layers import keypoint_attention
 from gaitlab_torch.ops import _build
 
 # the tiles of csrc/keypoint_attention.cu
@@ -72,6 +76,17 @@ def launch_plan(n_batch: int, hw: int, c_all: int, sms: int) -> AttentionPlan:
                          blocks_per_sm)
 
 
+def keypoint_attention(features: torch.Tensor,
+                       heatmaps: torch.Tensor) -> torch.Tensor:
+    """Softmax attention pooling (reference keypoint_attention.py:34-56).
+
+    features (B,H,W,C); heatmaps (B,H,W,J) raw part logits, both NHWC as in
+    gaitlab. Returns (B,J,C)."""
+    b, h, w, c = features.shape
+    attn = torch.softmax(heatmaps.reshape(b, h * w, -1), dim=1)
+    return torch.einsum("bpj,bpc->bjc", attn, features.reshape(b, h * w, c))
+
+
 def keypoint_attention_plain(features: torch.Tensor, cam_feats: torch.Tensor,
                              heatmaps: torch.Tensor):
     """Plain PyTorch version of `keypoint_attention_fused`."""
@@ -97,19 +112,36 @@ def keypoint_attention_fused(features: torch.Tensor, cam_feats: torch.Tensor,
     part logits -> (pooled features (B,J,C1), pooled cam (B,J,C2)), float32.
 
     On CUDA tensors this launches the kernel (or raises); on CPU tensors
-    it runs `keypoint_attention_plain`."""
+    it runs `keypoint_attention_plain`. Either way through the custom op
+    `torch.ops.gaitlab.keypoint_attention_fused`."""
     args = (features, cam_feats, heatmaps)
-    if all(a.device.type == "cpu" for a in args):
-        return keypoint_attention_plain(*args)
+    if not all(a.device.type == "cpu" for a in args):
+        dev = features.device
+        if dev.type != "cuda" or any(a.device != dev for a in args):
+            raise ValueError("keypoint_attention_fused: all inputs must be on "
+                             "one CUDA device (got "
+                             f"{[str(a.device) for a in args]})")
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        raise NotImplementedError(
+            "keypoint_attention_fused: the kernel has no backward")
+    return torch.ops.gaitlab.keypoint_attention_fused(*args)
+
+
+keypoint_attention_fused.launches = 0
+
+
+def _launch(features: torch.Tensor, cam_feats: torch.Tensor,
+            heatmaps: torch.Tensor):
+    """The op's CUDA implementation: checks, scratch, the kernel's two
+    launches (split, and merge where there are several splits); counts one
+    launch of the wrapper."""
+    args = (features, cam_feats, heatmaps)
     dev = features.device
     if dev.type != "cuda" or any(a.device != dev for a in args):
         raise ValueError("keypoint_attention_fused: all inputs must be on one "
                          f"CUDA device (got {[str(a.device) for a in args]})")
     if any(a.dtype != torch.float32 or a.dim() != 4 for a in args):
         raise ValueError("keypoint_attention_fused: inputs must be 4-d float32")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        raise NotImplementedError(
-            "keypoint_attention_fused: the kernel has no backward")
     b, h, w, c1 = features.shape
     c2 = cam_feats.shape[-1]
     j = heatmaps.shape[-1]
@@ -155,4 +187,20 @@ def keypoint_attention_fused(features: torch.Tensor, cam_feats: torch.Tensor,
     return out1, out2
 
 
-keypoint_attention_fused.launches = 0
+@torch.library.custom_op("gaitlab::keypoint_attention_fused", mutates_args=(),
+                         device_types="cuda")
+def _op(features: torch.Tensor, cam_feats: torch.Tensor,
+        heatmaps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return _launch(features, cam_feats, heatmaps)
+
+
+@_op.register_kernel("cpu")
+def _op_cpu(features, cam_feats, heatmaps):
+    return keypoint_attention_plain(features, cam_feats, heatmaps)
+
+
+@_op.register_fake
+def _op_fake(features, cam_feats, heatmaps):
+    b, j = features.shape[0], heatmaps.shape[-1]
+    return (features.new_empty((b, j, features.shape[-1])),
+            features.new_empty((b, j, cam_feats.shape[-1])))

@@ -20,6 +20,12 @@ With the gait branch each forward also takes the chunk's bbox and
 image-centre rows and its real-frame count (n_valid); the track-level
 gait estimate (pred_avg) of each forward is then averaged with weights
 equal to its real frames, and pred_phase is concatenated.
+
+`_forward(n, raw_uint8)` is one bucket's forward as a module whose weights
+are inputs (gaitlab's jitted `GRNetRunner._forward`): `serve.py` exports
+it, and its serving runner feeds the exported programs the bucket's raw
+uint8 host crops (`takes_uint8`). The module imports no model code until
+a live runner needs it.
 """
 
 from __future__ import annotations
@@ -29,15 +35,17 @@ import os
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import TYPE_CHECKING, Optional, Sequence
 
 import numpy as np
 import torch
 
 from gaitlab_torch.device import upload
-from gaitlab_torch.nn.grnet import GRNet
 from gaitlab_torch.pipeline import crop as crop_mod
 from gaitlab_torch.pipeline import loader
+
+if TYPE_CHECKING:
+    from gaitlab_torch.nn.grnet import GRNet
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 450)
 OUTPUT_KEYS = ("theta", "verts", "kp_2d", "kp_3d")
@@ -60,6 +68,9 @@ class GRNetRunner:
     # pred_avg and pred_phase always come back when the model makes them
     fetch: Optional[Sequence[str]] = None
     parallel: Optional[str] = None
+    # the bucket forward takes raw uint8 crops and normalizes them itself
+    # (a serving runner's programs): host crops then stay uint8 until then
+    takes_uint8 = False
 
     def __post_init__(self):
         if self.precision != "float32":
@@ -83,6 +94,17 @@ class GRNetRunner:
 
     # -- model forward at bucket sizes -------------------------------------
 
+    def _forward(self, n: int, raw_uint8: bool = False):
+        """The forward at bucket n as a module of (state_dict, SMPLParams,
+        NHWC crops[, bbox, cimg, n_valid]) with the weights as inputs:
+        uint8 crops, normalized inside, with `raw_uint8`. What
+        `serve.export_forward` exports; float32 with TF32 off is the
+        caller's (`device.float32_math`)."""
+        from gaitlab_torch.nn.grnet import BucketForward
+
+        return BucketForward(self.model.module, self.model.joint_mode,
+                             raw_uint8)
+
     def _forward_bucket(self, crops: torch.Tensor, bbox=None, cimg=None
                         ) -> dict:
         """One forward of m <= max-bucket normalized NHWC crops (and, for
@@ -91,8 +113,7 @@ class GRNetRunner:
         on the device. The gait branch is told that m frames are real."""
         m = crops.shape[0]
         b = self._bucket(m)
-        if b > m:
-            crops = torch.cat([crops, crops[-1:].expand(b - m, -1, -1, -1)])
+        crops = _pad_rows(crops, b)
         kw = {}
         if self.model.module.use_gait_feat:
             kw = dict(bbox=_pad_rows(bbox, b), cimg=_pad_rows(cimg, b),
@@ -149,7 +170,8 @@ class GRNetRunner:
                      scale: Optional[float] = None):
         """Yield normalized NHWC crop chunks on the model's device for a
         track given as an (N,H,W,3) uint8 array, a chunked frame source
-        (video.VideoChunkReader) or a list of image paths."""
+        (video.VideoChunkReader) or a list of image paths; host crops stay
+        uint8 on the host when the forward `takes_uint8`."""
         scale = self.bbox_scale if scale is None else scale
         n = len(bboxes)
         hh, ww = self._frame_hw(frames_or_paths)
@@ -178,8 +200,9 @@ class GRNetRunner:
         for chunk in chunks:
             e = s + len(chunk)
             if crop_on == "host":
-                yield crop_mod.normalize_image(upload(
-                    self._host_crop(chunk, bboxes[s:e], scale), device))
+                u8 = self._host_crop(chunk, bboxes[s:e], scale)
+                yield u8 if self.takes_uint8 else crop_mod.normalize_image(
+                    upload(u8, device))
             else:
                 yield crop_mod.crop_and_normalize(
                     chunk, bboxes[s:e], scale=scale,
@@ -248,7 +271,11 @@ def track_outputs(out: dict) -> dict:
 
 
 def _pad_rows(rows: torch.Tensor, b: int) -> torch.Tensor:
-    return torch.cat([rows, rows[-1:].expand(b - len(rows), -1)])
+    """rows padded to b by repeating the last one."""
+    if len(rows) == b:
+        return rows
+    return torch.cat([rows, rows[-1:].expand((b - len(rows),)
+                                             + tuple(rows.shape[1:]))])
 
 
 class ForwardStream:
@@ -285,9 +312,10 @@ class ForwardStream:
         self._done = False
 
     def _to_device(self, chunk) -> torch.Tensor:
-        if isinstance(chunk, np.ndarray) and chunk.dtype == np.uint8:
-            return crop_mod.normalize_image(upload(chunk, self.device))
-        return upload(chunk, self.device)
+        x = upload(chunk, self.device)
+        if x.dtype == torch.uint8 and not self.runner.takes_uint8:
+            return crop_mod.normalize_image(x)
+        return x
 
     def _work(self) -> None:
         """The worker: one forward per queued bucket, in order, until None;

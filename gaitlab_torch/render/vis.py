@@ -317,13 +317,23 @@ def batch_check_preds(images: np.ndarray, preds: dict, fmt: str = "spin2",
 def regressor_output_from_features(features: np.ndarray, hmr=None,
                                    joint_mode: str = "spin2"):
     """The SPIN iterative regressor + SMPL on precomputed backbone features
-    -> (verts (B,T,V,3), cam (B,T,3)) (the reference's
-    get_regressor_output). Needs the SPIN HMR model, which the port does
-    not have yet."""
-    raise NotImplementedError(
-        "regressor_output_from_features runs the SPIN HMR model "
-        "(nn/spin.py), which is not ported to gaitlab_torch yet (ROADMAP "
-        "A19)")
+    (B,T,2048) -> (verts (B,T,V,3), cam (B,T,3)) (the reference's
+    get_regressor_output, vis.py:473-508, which loads models/model_best
+    .pth.tar; pass an `nn.spin.HMR` with imported weights for that: the
+    default builds a fresh one on the card, enough for shape and plumbing
+    checks)."""
+    import torch
+
+    from gaitlab_torch.nn import spin as spin_mod
+
+    if hmr is None:
+        hmr = spin_mod.HMR.create(joint_mode=joint_mode)
+    feats = torch.as_tensor(np.asarray(features, np.float32))
+    b, t = feats.shape[:2]
+    out = hmr.regress(feats.reshape(b * t, -1).to(hmr.device))[0]
+    verts = out["verts"].cpu().numpy().reshape(b, t, -1, 3)
+    cam = out["theta"][:, :3].cpu().numpy().reshape(b, t, -1)
+    return verts, cam
 
 
 def show_video(video: np.ndarray, fps: float = 25.0,

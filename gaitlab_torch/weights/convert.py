@@ -1,4 +1,5 @@
-"""gaitlab flax variables -> this package's torch state_dicts (GRNet, YOLO).
+"""gaitlab flax variables -> this package's torch state_dicts (GRNet, YOLO,
+the legacy HMR).
 
 Inverts gaitlab/weights/torch_import.py::_convert_leaf without importing
 jax or gaitlab: the variables arrive as nested mappings of arrays
@@ -14,7 +15,8 @@ jax or gaitlab: the variables arrive as nested mappings of arrays
                                          (+ num_batches_tracked = 0)
 
 gaitlab's module names are the reference's torch paths with '.' written
-'_' (layer1_0, fuse_layers_0_1_0, upsample_stage_2_1, ...). Its YOLO
+'_' (layer1_0, fuse_layers_0_1_0, upsample_stage_2_1, ...; HMR's
+backbone/layer2_0/downsample_0, head/decpose). Its YOLO
 module names are the port's own (conv{i}.conv, conv{i}.bn, conv{i}).
 
 The gait branch ('pfeat_corrector') has no reference checkpoint; the
@@ -185,3 +187,9 @@ def yolo_state_dict_from_flax(variables: Mapping) -> dict:
     YoloNet, whose submodules carry the Flax names ('conv{i}.conv',
     'conv{i}.bn', 'conv{i}')."""
     return _state_dict(variables, ".".join)
+
+
+def hmr_state_dict_from_flax(variables: Mapping) -> dict:
+    """gaitlab HMRCore variables -> the state_dict of gaitlab_torch's
+    HMRCore (ResNet backbone, regressor head)."""
+    return _state_dict(variables, torch_module_path)

@@ -5,6 +5,7 @@
     python3 scripts/torch_kernel_study.py ablate
     python3 scripts/torch_kernel_study.py gait
     python3 scripts/torch_kernel_study.py queue
+    python3 scripts/torch_kernel_study.py serve
 
 `ab` times keypoint_attention_fused (B1) and blendshapes (B2) at B = 128,
 the main path's shapes, from the gaitlab_torch package of each TREE in
@@ -33,6 +34,14 @@ lines are plain text.
 card (tiny launches behind a sleep kernel of about 200 ms) and how long
 GRNet's and MAX-GRNet's forwards at bucket 450 keep the launching thread
 (host ms of the call, and the ms the card still runs after it returns).
+
+`serve` studies a pinned serving program (gaitlab_torch/serve.py) of
+full-width GRNet at bucket 128 (random weights from seed 0, random uint8
+crops): export seconds and graph nodes, where loading goes
+(torch.export.load, ExportedProgram.module(), weights.npz, the upload),
+the host ms of the program's input checks over its inputs, and the
+program's ms with and without those checks beside the live model's (CUDA
+events, median of 20), twice.
 """
 
 from __future__ import annotations
@@ -230,8 +239,10 @@ def gait() -> None:
             feats, cp = features(x, torch.from_numpy(bb).cuda(),
                                  torch.from_numpy(ci).cuda())
 
-            def corrector(feats=feats, cp=cp, b=b):
-                core.pfeat_corrector(feats[None], cp[None], [b])
+            n_valid = torch.tensor([b], device="cuda")
+
+            def corrector(feats=feats, cp=cp, n_valid=n_valid):
+                core.pfeat_corrector(feats[None], cp[None], n_valid)
 
             ms["corrector"] = events_ms(corrector)
         correctors[b] = corrector
@@ -357,6 +368,73 @@ def launch_queue() -> None:
         del model
 
 
+def serve_study() -> None:
+    """Where a pinned program's load time and its time over the live
+    model go (see the module's note)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.export._unlift import _check_input_constraints_pre_hook
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import card_line, events_ms
+    from gaitlab_torch import serve
+    from gaitlab_torch.device import upload
+    from gaitlab_torch.nn.grnet import GRNet
+    from gaitlab_torch.pipeline.crop import normalize_image
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    card = card_line()
+    model = GRNet.create(seed=0)
+    with tempfile.TemporaryDirectory() as art:
+        t0 = time.perf_counter()
+        serve.save_artifacts(GRNetRunner(model, buckets=(B,)), art,
+                             platforms=("cuda",))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ep = torch.export.load(osp.join(art, f"forward_b{B}.cuda.pt2"))
+        t1 = time.perf_counter()
+        ep.module()
+        t2 = time.perf_counter()
+        state, smpl = serve.load_weights(art)
+        t3 = time.perf_counter()
+        state = {k: upload(v, "cuda") for k, v in state.items()}
+        smpl = smpl.to("cuda")
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "card": card, "study": "serve_load", "bucket": B,
+            "export_s": export_s, "graph_nodes": len(ep.graph.nodes),
+            "state_tensors": len(state), "export_load_s": t1 - t0,
+            "module_s": t2 - t1, "load_weights_s": t3 - t2,
+            "upload_s": time.perf_counter() - t3}), flush=True)
+        sm = serve.load_artifacts(art)
+    prog = sm._programs[B]
+    x = upload(np.random.default_rng(0).integers(
+        0, 255, (B, 224, 224, 3)).astype(np.uint8), "cuda")
+    args = (sm.variables, sm.smpl._replace(faces=None), x)
+    for _ in range(3):
+        _check_input_constraints_pre_hook(prog, args, {})
+    t0 = time.perf_counter()
+    for _ in range(20):
+        _check_input_constraints_pre_hook(prog, args, {})
+    checks_ms = (time.perf_counter() - t0) / 20 * 1e3
+
+    def pinned():
+        sm._run(B, sm.variables, sm.smpl, x)
+
+    for _ in range(2):
+        row = {"card": card, "study": "serve_pinned", "bucket": B,
+               "input_checks_host_ms": checks_ms,
+               "pinned_ms": events_ms(pinned, reps=20)}
+        prog.validate_inputs = False
+        row["pinned_unchecked_ms"] = events_ms(pinned, reps=20)
+        prog.validate_inputs = True
+        row["live_ms"] = events_ms(lambda: model.forward(normalize_image(x)),
+                                   reps=20)
+        print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -374,6 +452,8 @@ def main() -> int:
         gait()
     elif cmd == "queue":
         launch_queue()
+    elif cmd == "serve":
+        serve_study()
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -222,4 +222,22 @@ print(" ".join(names))
         "render.vis", "render.overlay", "render.export", "render.fbx",
         "cli.fbx_output", "utils", "cli.batch_generation", "pipeline.medoids",
         "pipeline.openpose", "pipeline.boxes", "pipeline.datasets",
-        "pipeline.data", "weights.torch_import")} <= names
+        "pipeline.data", "weights.torch_import", "serve", "cli.serve",
+        "weights.cache", "nn.resnet", "nn.spin")} <= names
+
+
+def test_ops_import_no_model_code():
+    """Loading the kernels' op registrations (what a serving process does
+    before it loads a program) pulls in no gaitlab_torch.nn module."""
+    code = r"""
+import sys
+import gaitlab_torch.ops.blendshapes, gaitlab_torch.ops.keypoint_attention
+import torch
+assert hasattr(torch.ops.gaitlab, "blendshapes")
+assert hasattr(torch.ops.gaitlab, "keypoint_attention_fused")
+loaded = [m for m in sys.modules if m.startswith("gaitlab_torch.nn")]
+assert not loaded, loaded
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

@@ -422,5 +422,12 @@ def test_vis_sequence_matches_gaitlab(rng, tmp_path, monkeypatch):
 
 
 def test_regressor_output_waits_for_spin():
-    with pytest.raises(NotImplementedError, match="A19"):
-        pt_vis.regressor_output_from_features(np.zeros((1, 2, 2048)))
+    """The SPIN regressor is ported (nn/spin.py): the function runs it, on
+    the HMR it is given (here one on the CPU; tests/test_torch_spin.py holds
+    it against gaitlab), or on a fresh one on the card."""
+    from gaitlab_torch.nn.spin import HMR
+
+    verts, cam = pt_vis.regressor_output_from_features(
+        np.zeros((1, 2, 2048), np.float32), hmr=HMR.create(device="cpu"))
+    assert verts.shape == (1, 2, 6890, 3) and cam.shape == (1, 2, 3)
+    assert np.isfinite(verts).all() and np.isfinite(cam).all()
