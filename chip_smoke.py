@@ -112,14 +112,33 @@ Phases, each of which exits non-zero on failure:
              weights) at batch 128: blendshapes held against its plain
              version, ms/batch, card against CPU on CPU_FRAMES frames, and
              render/vis.py::regressor_output_from_features card against CPU
+ 13. train   training with phase 3's checkpoint: (a) `cli.train` on two
+             .npz shards of 64 real 224 crops of walk.mp4 with synthetic
+             labels, at --batch_size 32 for TRAIN_STEPS steps, then
+             --resume to TRAIN_RESUME_STEPS: finite logged losses, the
+             backbone's parameters and every BN buffer bit-unchanged,
+             every head parameter moved, the resumed run starting at the
+             saved step, both kernels launched and both ops' backwards
+             run once a step, every kernel call held against its plain
+             version; (b) one step's loss metrics and head gradients card
+             against CPU (and both against the CPU in float64); (c) each
+             op's backward at the trainer's shapes (B1 at H*W = 3136 and
+             256, B2 at B = 32) against autograd through its plain
+             version, forward + backward ms of op and plain version; (d)
+             the step's samples/s, peak memory and profile; (e) `cli.train
+             --gait --data synthetic` at its defaults, every B1 call
+             checked, steps/s; (f) classify.fit and eval.evaluate_batch
+             card against CPU
 Two lines before the last list every kernel as JSON: launches_by_path
 holds the launches of each main path, phase 6's `--smooth` demo
 ("demo_smooth"), phase 8's two-pass `analyze_video` ("api_gait"), phase
 9's default demo ("demo_render"), phase 10's batch_generation from
-the folder ("batchgen"), phase 11's `cli.serve run` ("serve_run") and
-phase 12's HMR forward ("hmr"), each counted from 0 just before its run;
-launches is their sum; max_abs_err is the largest over phases 2, 6, 8,
-10, 11 and 12. Kernel calls are seen at the ops' CUDA implementations, so
+the folder ("batchgen"), phase 11's `cli.serve run` ("serve_run"),
+phase 12's HMR forward ("hmr"), and phase 13's first `cli.train` run
+("train") and gait trainer ("train_gait"), each counted from 0 just
+before its run; launches is their sum; max_abs_err is the largest over
+phases 2, 6, 8, 10, 11, 12 and 13 (13's backwards included); fwd_bwd_ms
+holds phase 13's forward + backward timings. Kernel calls are seen at the ops' CUDA implementations, so
 calls from inside a loaded torch.export program are counted and checked
 too. The line before the last holds the card's name and power limit, and the
 last line is
@@ -205,6 +224,20 @@ SERVE_TIMED = 128
 SERVE_GAIT_BUCKET, SERVE_GAIT_FRAMES = 256, 200  # a padded tail
 SERVE_OPS = ("gaitlab.keypoint_attention_fused.default",
              "gaitlab.blendshapes.default")
+TRAIN_SHARDS, TRAIN_SHARD_N = 2, 64
+TRAIN_BATCH = 32  # the trainer's default --batch_size
+TRAIN_STEPS, TRAIN_RESUME_STEPS = 20, 30
+GAIT_TRAIN_STEPS = 20
+# one step's loss metrics and head gradients card against CPU: the same
+# ~100 fp32 convs as phase 4 and their backward through the head, summed in
+# two libraries' orders; max|card - cpu| <= TRAIN_CPU_RTOL * max(1, max|.|)
+TRAIN_CPU_RTOL = 1e-3
+# ... or, for a gradient, |card - cpu64| <= TRAIN_F64_FACTOR * |cpu - cpu64|
+# (float64 on the CPU as the reference; see train_card_vs_cpu)
+TRAIN_F64_FACTOR = 3.0
+FIT_N = 64  # clips of the seeded cohort
+FIT_ATOL = 1e-4  # classify.fit card against CPU: probabilities
+EVAL_RTOL = 1e-4  # evaluate_batch card against CPU, relative
 
 
 def log(*a):
@@ -431,6 +464,7 @@ def calibrated_model(vid: str, trackfile: str, workdir: str):
             m.reset_running_stats()
             m.momentum = None  # cumulative average: the pass's exact stats
     core.train()
+    core.backbone.train()  # the core keeps it in inference mode otherwise
     with torch.no_grad(), float32_math():
         core(crops[:CALIB_FRAMES].permute(0, 3, 1, 2).contiguous())
         for mlp in (core.head.cam_mlp, core.head.shape_mlp):
@@ -2403,6 +2437,429 @@ def hmr_phase(workdir: str, trackfile: str) -> tuple[dict, dict]:
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training and evaluation
+# ---------------------------------------------------------------------------
+
+def make_train_shards(workdir: str, trackfile: str) -> str:
+    """TRAIN_SHARDS .npz shards of TRAIN_SHARD_N samples: real 224-pixel
+    uint8 crops of walk.mp4's first track, synthetic labels in the schema
+    gaitlab's trainer reads. Returns the glob."""
+    import numpy as np
+
+    frames, bbox, _ = gait_track(workdir, trackfile)
+    n = TRAIN_SHARDS * TRAIN_SHARD_N
+    crops = host_crops(frames[:n], bbox)
+    rng = np.random.default_rng(SEED)
+    d = osp.join(workdir, "train_data")
+    os.makedirs(d, exist_ok=True)
+    for s in range(TRAIN_SHARDS):
+        m = TRAIN_SHARD_N
+        np.savez(osp.join(d, f"shard{s}.npz"),
+                 images=crops[s * m:(s + 1) * m],
+                 kp_2d=np.concatenate([rng.normal(size=(m, 29, 2)),
+                                       np.ones((m, 29, 1))], -1
+                                      ).astype(np.float32),
+                 kp_3d=np.concatenate([rng.normal(size=(m, 29, 3)) * 0.3,
+                                       np.ones((m, 29, 1))], -1
+                                      ).astype(np.float32),
+                 pose=np.tile(np.eye(3, dtype=np.float32), (m, 24, 1, 1)),
+                 betas=(rng.normal(size=(m, 10)) * 0.03).astype(np.float32),
+                 has_smpl=np.ones((m,), np.float32))
+    return osp.join(d, "shard*.npz")
+
+
+@contextlib.contextmanager
+def logged_messages():
+    """The messages logged while inside (the trainer logs through the root
+    logger)."""
+    import logging
+
+    seen = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    handler = Keep(logging.INFO)
+    root = logging.getLogger()
+    root.addHandler(handler)
+    try:
+        yield seen
+    finally:
+        root.removeHandler(handler)
+
+
+def drive_train(argv: list) -> tuple:
+    """cli.train.main(argv) with every kernel call seen and held against
+    its plain version, each kernel's launches and backwards counted from 0
+    just before it. Returns (model, state, counts, calls, messages,
+    wall s)."""
+    from gaitlab_torch.cli import train
+    from gaitlab_torch.ops.blendshapes import blendshapes
+    from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
+
+    fns = {"blendshapes": blendshapes,
+           "keypoint_attention": keypoint_attention_fused}
+    with kernel_spies(check=True) as seen, logged_messages() as msgs:
+        for fn in fns.values():
+            fn.launches = fn.backwards = 0
+        t0 = time.perf_counter()
+        out = train.main(train.build_parser().parse_args(argv))
+        wall = time.perf_counter() - t0
+        counts = {name: (fn.launches, fn.backwards)
+                  for name, fn in fns.items()}
+    return (*out, counts, seen["calls"], list(msgs), wall)
+
+
+def checked_errors(tag: str, calls: dict) -> dict:
+    """Each kernel's largest error against its plain version over the
+    calls a spy checked, each within its tolerance scaled by max(1,
+    max|out|)."""
+    errs = {}
+    for name, checked in calls.items():
+        tol = B1_ATOL if name == "keypoint_attention" else B2_ATOL
+        errs[name] = 0.0
+        for shapes, e in checked:
+            if not e["err"] <= tol * max(1.0, e["scale"]):
+                raise AssertionError(f"[{tag}] {name} at {shapes} disagrees "
+                                     f"with its plain version: {e}")
+            errs[name] = max(errs[name], e["err"])
+        if checked:
+            log(f"[{tag}] {name}: {len(checked)} calls at batch shapes "
+                f"{sorted({sh[-1][0] for sh, _ in checked})}, each held "
+                f"against the plain version: largest error "
+                f"{errs[name]:.3e}")
+    return errs
+
+
+def logged_losses(tag: str, msgs: list) -> list:
+    import math
+
+    losses = [float(m.split("loss ")[1].split(" ")[0]) for m in msgs
+              if m.startswith("step ")]
+    rates = [m.split("(")[1].rstrip(")") for m in msgs
+             if m.startswith("step ")]
+    log(f"[{tag}] logged losses {losses}; rates {rates}")
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[{tag}] logged losses {losses}")
+    return losses
+
+
+def train_main_path(ckpt: str, data: str, workdir: str) -> tuple:
+    """(a): cli.train on the card, TRAIN_STEPS steps, then --resume to
+    TRAIN_RESUME_STEPS. Returns the first run's launches, the trained
+    model, the largest checked errors."""
+    import torch
+
+    start = torch.load(ckpt, map_location="cpu",
+                       weights_only=True)["gen_state_dict"]
+    run_dir = osp.join(workdir, "train_run")
+    common = ["--data", data, "--workdir", run_dir, "--batch_size",
+              str(TRAIN_BATCH), "--init_ckpt", ckpt, "--save_every", "10",
+              "--log_every", "5"]
+    model, state, counts, calls, msgs, wall = drive_train(
+        common + ["--steps", str(TRAIN_STEPS)])
+    log(f"[train] cli.train --batch_size {TRAIN_BATCH} --steps "
+        f"{TRAIN_STEPS}: {wall:.2f} s; (launches, backwards) {counts}")
+    logged_losses("train", msgs)
+    errs = checked_errors("train", calls)
+    for name, (n_fwd, n_bwd) in counts.items():
+        if n_fwd != TRAIN_STEPS or n_bwd != TRAIN_STEPS:
+            raise AssertionError(f"{name}: {n_fwd} launches and {n_bwd} "
+                                 f"backwards in {TRAIN_STEPS} steps")
+    if state.step != TRAIN_STEPS or not any(
+            m == f"checkpoint saved at step {TRAIN_STEPS}" for m in msgs):
+        raise AssertionError(f"train: step {state.step}, no last checkpoint")
+    got = {k: v.cpu() for k, v in model.module.state_dict().items()}
+    frozen = [k for k in got if k.startswith("backbone.")
+              or k.endswith(("running_mean", "running_var",
+                             "num_batches_tracked"))]
+    moved = [k for k, _ in model.module.head.named_parameters()]
+    unchanged = [k for k in frozen if not torch.equal(got[k], start[k])]
+    still = [k for k in moved if k != "keypoint_final_layer.bias"
+             and torch.equal(got[f"head.{k}"], start[f"head.{k}"])]
+    bias_moved = not torch.equal(got["head.keypoint_final_layer.bias"],
+                                 start["head.keypoint_final_layer.bias"])
+    log(f"[train] {len(frozen)} backbone parameters and BN buffers "
+        f"bit-unchanged: {not unchanged}; {len(moved) - 1} head parameters "
+        f"moved: {not still} (keypoint_final_layer.bias, whose exact "
+        f"gradient is 0, moved: {bias_moved})")
+    if unchanged or still:
+        raise AssertionError(f"train: changed {unchanged[:3]}, still "
+                             f"{still[:3]}")
+
+    _, state2, counts2, calls2, msgs2, wall2 = drive_train(
+        common + ["--steps", str(TRAIN_RESUME_STEPS), "--resume"])
+    n = TRAIN_RESUME_STEPS - TRAIN_STEPS
+    log(f"[train] --resume to {TRAIN_RESUME_STEPS}: {wall2:.2f} s; "
+        f"(launches, backwards) {counts2}")
+    logged_losses("train", msgs2)
+    errs2 = checked_errors("train", calls2)
+    if (f"resumed from step {TRAIN_STEPS}" not in msgs2
+            or state2.step != TRAIN_RESUME_STEPS
+            or any(c != (n, n) for c in counts2.values())):
+        raise AssertionError(f"train --resume: step {state2.step}, "
+                             f"counts {counts2}")
+    del state, state2
+    return ({k: c[0] for k, c in counts.items()}, model,
+            {k: max(errs[k], errs2[k]) for k in errs})
+
+
+def train_card_vs_cpu(ckpt: str, data: str) -> None:
+    """(b): one train step's loss metrics and head gradients on CPU_FRAMES
+    samples, from phase 3's weights: the card against the CPU in float32,
+    and both against the CPU in float64. The metrics must agree within
+    TRAIN_CPU_RTOL x max(1, max|.|). So must each gradient, or else the
+    card be no further from float64 than TRAIN_F64_FACTOR times the CPU's
+    own float32 error: the gradients of the head's first convolutions
+    pass through the softmax pooling's backward, attn * (d_attn -
+    sum(attn * d_attn)), whose subtraction cancels in float32 on either
+    device."""
+    import numpy as np
+    import torch
+
+    from gaitlab_torch import training
+    from gaitlab_torch.body.smpl import SMPLParams
+    from gaitlab_torch.cli import train
+    from gaitlab_torch.cli.demo import build_model
+
+    batch = next(train._batches(train._load_shards(data), CPU_FRAMES, 1,
+                                SEED))
+    out = {}
+    for where, dev, dtype in (("card", None, torch.float32),
+                              ("cpu", "cpu", torch.float32),
+                              ("cpu64", "cpu", torch.float64)):
+        model = build_model(ckpt, device=dev)
+        core = model.module.to(dtype)
+        smpl = SMPLParams(*(x.to(dtype) if isinstance(x, torch.Tensor)
+                            and x.is_floating_point() else x
+                            for x in model.smpl))
+        opt, _ = training.make_optimizer(
+            training.trainable_parameters(core), lr=5e-5)
+        metrics = training.make_train_step(core, smpl, opt)(
+            {k: v.to(dtype) for k, v in
+             train._to_device(batch, model.device).items()})
+        out[where] = {**{k: v.double().cpu().numpy()
+                         for k, v in metrics.items()},
+                      **{k: p.grad.double().cpu().numpy()
+                         for k, p in core.head.named_parameters()}}
+        del model, core, opt
+    worst = []
+    for k, want in out["cpu"].items():
+        got, ref = out["card"][k], out["cpu64"][k]
+        err = float(np.abs(got - want).max())
+        limit = TRAIN_CPU_RTOL * max(1.0, float(np.abs(want).max()))
+        card64 = float(np.abs(got - ref).max())
+        cpu64 = float(np.abs(want - ref).max())
+        ok = np.all(np.isfinite(got)) and (err <= limit or (
+            not k.startswith("loss") and card64 <= TRAIN_F64_FACTOR * cpu64))
+        if err > limit:
+            log(f"[train] card vs CPU {k}: {err:.3e} over {limit:.3e} "
+                f"(max|.| {np.abs(want).max():.3e}); against float64: card "
+                f"{card64:.3e}, CPU {cpu64:.3e}")
+        if not ok:
+            raise AssertionError(f"[train] card vs CPU {k}: {err} > {limit}")
+        worst.append((err / limit, k))
+    log(f"[train] card vs CPU, one step on {CPU_FRAMES} samples: loss "
+        f"{float(out['card']['loss']):.6f} vs {float(out['cpu']['loss']):.6f}"
+        f" (float64 {float(out['cpu64']['loss']):.6f}); {len(out['cpu'])} "
+        f"tensors (metrics and head gradients), {sum(w <= 1 for w, _ in worst)}"
+        f" within {TRAIN_CPU_RTOL:g} x max(1, max|.|); largest share of that "
+        f"limit {max(worst)[0]:.3f} ({max(worst)[1]})")
+
+
+def op_backward(flush) -> tuple[dict, dict]:
+    """(c): each op's backward on the card at the trainer's shapes against
+    autograd through its plain version, and forward + backward timed (CUDA
+    events) for the op and the plain version. Returns per kernel its
+    largest error and its timings."""
+    import torch
+
+    from gaitlab_torch.device import float32_math
+    from gaitlab_torch.ops import blendshapes as b2
+    from gaitlab_torch.ops import keypoint_attention as b1
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).requires_grad_()
+
+    cases = []
+    for hw in (56, 16):  # the head at 224 and at the gait trainer's 64
+        f, c = rand(TRAIN_BATCH, 128, hw, hw), rand(TRAIN_BATCH, 64, hw, hw)
+        hm = rand(TRAIN_BATCH, 25, hw, hw, scale=3.0)
+        views = lambda f, c, hm: (f.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1),
+                                  hm[:, 1:].permute(0, 2, 3, 1))
+        cases.append(("keypoint_attention", f"B={TRAIN_BATCH} HW={hw * hw}",
+                      (f, c, hm),
+                      lambda *a: b1.keypoint_attention_fused(*views(*a)),
+                      lambda *a: b1.keypoint_attention_plain(*views(*a))))
+    vt, sh = rand(6890, 3, scale=0.3), rand(6890, 3, 10, scale=0.01)
+    po = rand(207, 6890 * 3, scale=0.001)
+    be, pf = rand(TRAIN_BATCH, 10), rand(TRAIN_BATCH, 207, scale=0.5)
+    for t in (vt, sh, po):  # SMPL's tensors are constants of the step
+        t.requires_grad_(False)
+    cases.append(("blendshapes", f"B={TRAIN_BATCH}", (vt, sh, po, be, pf),
+                  b2.blendshapes, b2.blendshapes_plain))
+    errs = {"keypoint_attention": 0.0, "blendshapes": 0.0}
+    times = {}
+    for name, label, ins, op, plain in cases:
+        need = [t for t in ins if t.requires_grad]
+
+        def fwd_bwd(fn):
+            outs = fn(*ins)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            return torch.autograd.grad(outs, need, [torch.ones_like(o)
+                                                    for o in outs])
+
+        with float32_math():
+            got, want = fwd_bwd(op), fwd_bwd(plain)
+            ins64 = [t.detach().double().requires_grad_(t.requires_grad)
+                     for t in ins]
+            need64 = [t for t in ins64 if t.requires_grad]
+            outs64 = plain(*ins64)
+            outs64 = outs64 if isinstance(outs64, tuple) else (outs64,)
+            ref64 = torch.autograd.grad(outs64, need64,
+                                        [torch.ones_like(o) for o in outs64])
+            ms = time_ms(lambda: fwd_bwd(op), flush)
+            plain_ms = time_ms(lambda: fwd_bwd(plain), flush)
+        torch.cuda.synchronize()
+        tol = B1_ATOL if name == "keypoint_attention" else B2_ATOL
+        for i, (g, w, r) in enumerate(zip(got, want, ref64)):
+            err = (g - w).abs().max().item()
+            limit = tol * max(1.0, w.abs().max().item())
+            log(f"[train] {name} backward {label} d_input{i}: max_abs_err "
+                f"{err:.3e} (limit {limit:.3e}); against float64: op "
+                f"{(g - r).abs().max().item():.3e}, plain "
+                f"{(w - r).abs().max().item():.3e}")
+            if not err <= limit:
+                raise AssertionError(f"{name} backward disagrees at {label}")
+            errs[name] = max(errs[name], err)
+        log(f"[train] {name} forward + backward {label}: op {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms (CUDA events, median of 20, L2 "
+            f"flushed)")
+        times.setdefault(name, {})[label] = {"ms": ms, "plain_ms": plain_ms}
+    return errs, times
+
+
+def train_step_cost(model, data: str) -> None:
+    """(d): the train step at TRAIN_BATCH: samples/s (CUDA events, median
+    of 5), peak memory, a profile of one step."""
+    import torch
+
+    from gaitlab_torch import training
+    from gaitlab_torch.cli import train
+
+    batch = train._to_device(next(train._batches(
+        train._load_shards(data), TRAIN_BATCH, 1, SEED)), model.device)
+    opt, sched = training.make_optimizer(
+        training.trainable_parameters(model.module), lr=5e-5)
+    step = training.make_train_step(model.module, model.smpl, opt,
+                                    scheduler=sched)
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = events_ms(lambda: step(batch))
+    log(f"[train] train step at batch {TRAIN_BATCH} (float32, TF32 off; "
+        f"CUDA events, median of 5): {ms:.2f} ms = "
+        f"{TRAIN_BATCH / ms * 1e3:.1f} samples/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profiled("train", f"one train step at batch {TRAIN_BATCH}",
+             lambda: step(batch), top=10)
+
+
+def train_gait_path(workdir: str) -> tuple[dict, dict]:
+    """(e): cli.train --gait --data synthetic at the CLI's defaults."""
+    _, state, counts, calls, msgs, wall = drive_train(
+        ["--gait", "--data", "synthetic", "--workdir",
+         osp.join(workdir, "train_gait"), "--steps", str(GAIT_TRAIN_STEPS),
+         "--log_every", "5"])
+    log(f"[train_gait] cli.train --gait --data synthetic --steps "
+        f"{GAIT_TRAIN_STEPS}: {wall:.2f} s; (launches, backwards) {counts}")
+    logged_losses("train_gait", msgs)
+    errs = checked_errors("train_gait", calls)
+    n_b1 = counts["keypoint_attention"][0]
+    if state.step != GAIT_TRAIN_STEPS or n_b1 != 4 * 6 or len(
+            calls["keypoint_attention"]) != n_b1:
+        raise AssertionError(f"train_gait: step {state.step}, B1 launches "
+                             f"{n_b1}, checked {len(calls['keypoint_attention'])}")
+    return {k: c[0] for k, c in counts.items()}, errs
+
+
+def fit_and_eval(model, data: str) -> None:
+    """(f): classify.fit card against CPU on a seeded cohort, and
+    eval.evaluate_batch on the trained model's predictions card against
+    CPU."""
+    import numpy as np
+    import torch
+
+    from gaitlab_torch import eval as pt_eval
+    from gaitlab_torch.cli import train
+    from gaitlab_torch.device import float32_math
+    from gaitlab_torch.gait import classify
+    from gaitlab_torch.gait.features import FEATURE_NAMES
+
+    rng = np.random.default_rng(SEED)
+    feats = rng.normal(size=(FIT_N, len(FEATURE_NAMES))).astype(np.float32)
+    labels = (feats[:, 0] + 0.5 * feats[:, 1] > 0).astype(np.int64)
+    sev = 1 / (1 + np.exp(-feats[:, 0]))
+    fitted = {}
+    for where, dev in (("card", None), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        fitted[where] = classify.fit(feats, labels, severity=sev,
+                                     num_classes=2, device=dev)
+        log(f"[train] classify.fit on the {where} ({FIT_N} clips, 500 Adam "
+            f"steps): {time.perf_counter() - t0:.2f} s")
+    card = classify.predict(fitted["card"], feats)
+    host = classify.predict(fitted["cpu"], feats)
+    err = float(np.abs(card["probs"] - host["probs"]).max())
+    log(f"[train] fit card vs CPU: labels equal "
+        f"{np.array_equal(card['label'], host['label'])}, probs max abs "
+        f"{err:.3e} (limit {FIT_ATOL:g}); train accuracy "
+        f"{(card['label'] == labels).mean():.3f}")
+    if not (np.array_equal(card["label"], host["label"]) and err <= FIT_ATOL):
+        raise AssertionError("classify.fit: card and CPU disagree")
+
+    batch = next(train._batches(train._load_shards(data), TRAIN_BATCH, 1,
+                                SEED + 1))
+    x = train._to_device(batch, model.device)["images"]
+    with float32_math(), torch.inference_mode():
+        pred = model.forward(x)[0]
+    pj, pv = pred["kp_3d"][0], pred["verts"][0]
+    gj = torch.from_numpy(batch["kp_3d"][..., :3]).to(model.device)
+    gv = pv + 0.01 * torch.randn(pv.shape, device=pv.device)
+    card = pt_eval.evaluate_batch(pj, gj, pv, gv)
+    host = pt_eval.evaluate_batch(pj.cpu(), gj.cpu(), pv.cpu(), gv.cpu())
+    log(f"[train] evaluate_batch on the trained model's predictions: card "
+        f"{card}, CPU {host}")
+    for k in host:
+        if not abs(card[k] - host[k]) <= EVAL_RTOL * abs(host[k]):
+            raise AssertionError(f"evaluate_batch {k}: card and CPU differ")
+
+
+def train_phase(ckpt: str, workdir: str, trackfile: str) -> tuple:
+    """Phase 13. Returns the launches of the trainer's run and of the gait
+    trainer's, each kernel's largest checked error, and the ops'
+    forward + backward timings."""
+    import torch
+
+    data = make_train_shards(workdir, trackfile)
+    launches, model, errs = train_main_path(ckpt, data, workdir)
+    train_card_vs_cpu(ckpt, data)
+    flush = torch.empty(256 * 2**20 // 4, device="cuda")
+    bwd_errs, bwd_times = op_backward(flush)
+    del flush
+    train_step_cost(model, data)
+    fit_and_eval(model, data)
+    del model
+    torch.cuda.empty_cache()
+    gait_launches, gait_errs = train_gait_path(workdir)
+    errs = {k: max(errs[k], bwd_errs[k], gait_errs[k]) for k in errs}
+    return launches, gait_launches, errs, bwd_times
+
+
 def main() -> int:
     import torch
 
@@ -2459,19 +2916,24 @@ def main() -> int:
         serve_launches, serve_errs = serve_phase(ckpt, workdir, trackfile,
                                                  det_vid)
         hmr_launches, hmr_errs = hmr_phase(workdir, trackfile)
+        train_launches, train_gait_launches, train_errs, bwd_times = \
+            train_phase(ckpt, workdir, trackfile)
     paths = {"demo_smooth": launches, "api_gait": gait_launches,
              "demo_render": render_launches, "batchgen": bg_launches,
-             "serve_run": serve_launches, "hmr": hmr_launches}
+             "serve_run": serve_launches, "hmr": hmr_launches,
+             "train": train_launches, "train_gait": train_gait_launches}
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         r["max_abs_err"] = max(r["max_abs_err"], path_errs[r["name"]],
                                gait_errs[r["name"]], bg_errs[r["name"]],
-                               serve_errs[r["name"]], hmr_errs[r["name"]])
+                               serve_errs[r["name"]], hmr_errs[r["name"]],
+                               train_errs[r["name"]])
+        r["fwd_bwd_ms"] = bwd_times[r["name"]]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "bound_by", "library_ms", "fwd_bwd_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ Counterpart of gaitlab/body/joints.py: the same name tables, so that
 `convert_kps(x, src, dst)` gathers by joint name and zero-fills joints the
 source lacks, as the reference's kp_utils.convert_kps does, and the same
 bone lists (`get_skeleton`), which the overlay draws. The demo uses it for
-`--joint_type` other than spin.
+`--joint_type` other than spin. `get_perm_idxs`, `get_left_right_index`
+and `keypoint_hflip` serve flip augmentation of keypoint data.
 
 Deployed formats: 'spin' (49), 'spin2' (29), 'kinectv2' (25); the rest are
 kept for dataset interchange.
@@ -279,3 +280,32 @@ def convert_kps(joints: np.ndarray, src: str, dst: str) -> np.ndarray:
     out[:, :, :joints.shape[-1]] = np.where(valid[None, :, None],
                                             joints[:, idx], 0.0)
     return out
+
+
+def get_perm_idxs(src: str, dst: str) -> list[int]:
+    """Indices into `src`'s joints of the `dst` joints it has, in `dst`'s
+    order."""
+    src_names = JOINT_FORMATS[src]
+    return [src_names.index(n) for n in JOINT_FORMATS[dst] if n in src_names]
+
+
+def get_left_right_index(fmt: str) -> tuple[list[int], list[int]]:
+    """Left and right joint index lists (the reference's kp_utils)."""
+    left, right = [], []
+    for idx, name in enumerate(JOINT_FORMATS[fmt]):
+        jn = name.split(" ")[1] if " " in name else name
+        if jn[0] in "Rr":
+            right.append(idx)
+        elif jn[0] in "Ll":
+            left.append(idx)
+    if len(left) != len(right):
+        raise ValueError(f"{fmt}: {len(left)} left joints, {len(right)} right")
+    return left, right
+
+
+def keypoint_hflip(kp, img_width: float) -> np.ndarray:
+    """Horizontal flip of 2D keypoints (x -> img_width - 1 - x), on a
+    copy."""
+    kp = np.array(kp, copy=True)
+    kp[..., 0] = (img_width - 1.0) - kp[..., 0]
+    return kp

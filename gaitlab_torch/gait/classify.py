@@ -2,10 +2,10 @@
 
 Counterpart of gaitlab/gait/classify.py: `DementiaScorer`, a small MLP
 over the gait_features vector that gives class logits (default 3: normal /
-MCI-like / dementia-like gait) and a severity in [0, 1]; `predict` and
-`score_clip` with a fitted scorer. Scorers are fitted by gaitlab for now
-and carried over with `scorer_from_flax`: `fit` is training, which comes
-with the rest of training (ROADMAP A14).
+MCI-like / dementia-like gait) and a severity in [0, 1]; `fit`
+(full-batch Adam, for the small clinical cohorts this is used with), and
+`predict` and `score_clip` with a fitted scorer. A scorer fitted by
+gaitlab is carried over with `scorer_from_flax`.
 
 Validation status, as in gaitlab: no clinical data exists here, so the
 scorer has been exercised only on separable synthetic feature
@@ -63,11 +63,50 @@ def scorer_from_flax(fitted, device=None) -> FittedScorer:
                         num_classes=int(fitted.num_classes))
 
 
-def fit(*args, **kwargs) -> FittedScorer:
-    raise NotImplementedError(
-        "gaitlab_torch.gait.classify.fit is training, which is not ported "
-        "yet (ROADMAP A14): fit with gaitlab.gait.classify.fit and carry "
-        "the result over with scorer_from_flax")
+def init_state(num_classes: int, num_features: int, seed: int,
+               device) -> dict:
+    """The state_dict `fit` starts from: torch's init of DementiaScorer
+    under `seed`. (gaitlab's starts from a Flax init, which other
+    random numbers make; a test swaps this function for one that carries
+    that init over.)"""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = DementiaScorer(num_classes, num_features=num_features)
+    return {k: v.to(device) for k, v in model.state_dict().items()}
+
+
+def fit(features: np.ndarray, labels: np.ndarray,
+        severity: Optional[np.ndarray] = None, num_classes: int = 3,
+        steps: int = 500, lr: float = 1e-2, seed: int = 0,
+        device=None) -> FittedScorer:
+    """Train on (N, F) feature vectors with int labels (and optional [0, 1]
+    severity targets): full-batch Adam on cross-entropy plus the severity
+    MSE, over features normalized by their mean and std. Runs on `device`
+    (None: the card) in float32 with TF32 off."""
+    device = resolve_device(device)
+    x = np.asarray(features, np.float32)
+    mean = x.mean(0)
+    std = x.std(0) + 1e-6
+    xn = torch.from_numpy(((x - mean) / std).astype(np.float32)).to(device)
+    y = torch.from_numpy(np.asarray(labels, np.int64)).to(device)
+    sev = None if severity is None else torch.from_numpy(
+        np.asarray(severity, np.float32)).to(device)
+
+    model = DementiaScorer(num_classes, num_features=x.shape[1]).to(device)
+    model.load_state_dict(init_state(num_classes, x.shape[1], seed, device))
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    with float32_math():
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            logits, s = model(xn)
+            loss = nn.functional.cross_entropy(logits, y)
+            if sev is not None:
+                loss = loss + torch.mean((s - sev) ** 2)
+            loss.backward()
+            opt.step()
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return FittedScorer(params=params, mean=mean, std=std,
+                        num_classes=num_classes)
 
 
 def predict(fitted: FittedScorer, features: np.ndarray) -> dict:

@@ -11,7 +11,9 @@ does by default and torch does not is written out here:
     rounded down to a multiple of the head count, and masked logits are
     filled with the dtype's minimum (not -inf);
   * Flax's GRUCell has no b_hr / b_hz: the GRU's `bias_hh` holds
-    [0, 0, b_hn] (the converter writes it so).
+    [0, 0, b_hn] (the converter writes it so), and a gradient hook keeps
+    training from moving the two zeros (they would double the step of
+    b_ir and b_iz, which they duplicate).
 The GRU is torch.nn.GRU's (cuDNN on the card); gaitlab runs it as a scan
 outside any Pallas kernel. With `seq_lengths` (a tensor of real-frame
 counts, read on the device: the runner pads a track to a bucket, and a
@@ -27,6 +29,7 @@ under `torch.export`, and it copies nothing from the host to the card.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -63,6 +66,7 @@ class BiGRU(nn.GRU):
             for name, p in self.named_parameters():
                 if name.startswith("bias_hh"):
                     p[:2 * h] = 0.0  # Flax has no b_hr, b_hz
+                    p.register_hook(functools.partial(_without_rz, h))
 
     def forward(self, x: torch.Tensor,
                 seq_lengths: Optional[torch.Tensor] = None):
@@ -97,6 +101,11 @@ class BiGRU(nn.GRU):
                 dirs.append(o)
             out = torch.cat(dirs, dim=-1) * valid
         return out, torch.cat(finals, dim=-1)
+
+
+def _without_rz(h: int, grad: torch.Tensor) -> torch.Tensor:
+    """bias_hh's gradient with its r and z parts (the first 2h) zeroed."""
+    return torch.cat([torch.zeros_like(grad[:2 * h]), grad[2 * h:]])
 
 
 def _packed(tensors: list) -> list:
@@ -262,15 +271,18 @@ class FeatCorrector(nn.Module):
     """Pose-feature correction from estimated gait features.
 
     forward(x (B,T,J,C) pose features, cparams (B,T,3), seq_lengths) ->
-    (corrected (B,T,J,C), pred_avg (B,3), pred_phase (B,T,4))."""
+    (corrected (B,T,J,C), pred_avg (B,3), pred_phase (B,T,4)).
+    With `stop_gaitfeat_grad` (the default, as in gaitlab) the corrector
+    does not back-drive the gait estimates; the gait trainer turns it off."""
 
     def __init__(self, num_joints: int = 24, feat_dim: int = 128,
                  num_avg_gfeat: int = 3, estim_phase: bool = True,
                  num_layers: int = 1, h_size: int = 1024, num_heads: int = 4,
-                 use_jwff: bool = False):
+                 use_jwff: bool = False, stop_gaitfeat_grad: bool = True):
         super().__init__()
         c = feat_dim
         self.estim_phase = estim_phase
+        self.stop_gaitfeat_grad = stop_gaitfeat_grad
         self.num_layers = num_layers
         self.featnet = GaitFeatEncoder(num_joints, c, num_avg_gfeat,
                                        estim_phase)
@@ -298,8 +310,8 @@ class FeatCorrector(nn.Module):
 
             raw = torch.cat([raw, unit(pred_phase[..., :2]),
                              unit(pred_phase[..., 2:])], dim=-1)
-        # the corrector does not back-drive the gait estimates
-        raw = raw.detach()
+        if self.stop_gaitfeat_grad:
+            raw = raw.detach()
 
         gtok = self.gfeat_token(_leaky(self.gfeat_fc(raw)))
         y = torch.cat([x, gtok[:, :, None, :]], dim=2)  # (B,T,J+1,C)

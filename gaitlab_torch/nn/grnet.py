@@ -35,7 +35,12 @@ class GRNetCore(nn.Module):
     """HRNet-W32 backbone + PARE head, and with `use_gait_feat` the
     gait-feature corrector between the head's pooling and its regressors.
     The width, depth and head-feature knobs exist so that tests can build
-    small models; the featcorr_* knobs are gaitlab's MODEL.FEAT_CORR.*."""
+    small models; the featcorr_* knobs are gaitlab's MODEL.FEAT_CORR.*.
+
+    As in gaitlab, the backbone's BatchNorms always run on their running
+    statistics, whatever `.train()` says, and with `freeze_backbone` the
+    backbone runs without autograd: gradients reach the head (and the
+    corrector) only, and the backbone's activations are not kept."""
 
     def __init__(self, num_joints: int = 24, num_input_features: int = 480,
                  num_features_pare: int = 128, num_features_smpl: int = 64,
@@ -43,9 +48,11 @@ class GRNetCore(nn.Module):
                  backbone_blocks: int = 4, use_gait_feat: bool = False,
                  featcorr_avg_dim: int = 3, featcorr_estim_phase: bool = True,
                  featcorr_num_layers: int = 1, featcorr_h_size: int = 1024,
-                 featcorr_num_heads: int = 4, featcorr_use_jwff: bool = False):
+                 featcorr_num_heads: int = 4, featcorr_use_jwff: bool = False,
+                 freeze_backbone: bool = True):
         super().__init__()
         self.use_gait_feat = use_gait_feat
+        self.freeze_backbone = freeze_backbone
         self.backbone = PoseHighResolutionNet(
             HRNetCfg.w(backbone_width, backbone_modules, backbone_blocks))
         self.head = PareHead(num_joints, num_input_features,
@@ -56,6 +63,11 @@ class GRNetCore(nn.Module):
                 featcorr_estim_phase, featcorr_num_layers, featcorr_h_size,
                 featcorr_num_heads, featcorr_use_jwff)
 
+    def train(self, mode: bool = True) -> "GRNetCore":
+        super().train(mode)
+        self.backbone.train(False)  # gaitlab: backbone(images, train=False)
+        return self
+
     def forward(self, images: torch.Tensor,
                 bbox: Optional[torch.Tensor] = None,
                 cimg: Optional[torch.Tensor] = None,
@@ -65,7 +77,11 @@ class GRNetCore(nn.Module):
         on the device) says how many leading frames are real when the
         runner pads the track to a bucket: padded frames then stay out of
         the gait GRU and attention."""
-        features = self.backbone(images)
+        if self.freeze_backbone and torch.is_grad_enabled():
+            with torch.no_grad():
+                features = self.backbone(images)
+        else:
+            features = self.backbone(images)
         if not self.use_gait_feat:
             return self.head(features)
         if bbox is None or cimg is None:

@@ -10,7 +10,10 @@ FP32), which keeps float32 accuracy; on an H100 it is then bound by its
 The wrapper calls the custom op `gaitlab::blendshapes`, whose CUDA
 implementation is the kernel and whose CPU implementation is the plain
 version, so the device of the inputs picks one when the op runs: in eager
-code and inside a `torch.export` program alike (`serve.py`).
+code and inside a `torch.export` program alike (`serve.py`). Its backward
+is plain torch code on either device (gaitlab's Pallas kernel has none:
+gaitlab trains through XLA's autodiff of the plain sum), so a training
+step runs the kernel forward.
 """
 
 from __future__ import annotations
@@ -83,12 +86,11 @@ def blendshapes(v_template: torch.Tensor, shapedirs: torch.Tensor,
         if dev.type != "cuda" or any(a.device != dev for a in args):
             raise ValueError("blendshapes: all inputs must be on one CUDA "
                              f"device (got {[str(a.device) for a in args]})")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        raise NotImplementedError("blendshapes: the kernel has no backward")
     return torch.ops.gaitlab.blendshapes(*args)
 
 
 blendshapes.launches = 0
+blendshapes.backwards = 0
 
 
 def _launch(v_template: torch.Tensor, shapedirs: torch.Tensor,
@@ -145,3 +147,31 @@ def _op_cpu(v_template, shapedirs, posedirs, betas, pose_feature):
 @_op.register_fake
 def _op_fake(v_template, shapedirs, posedirs, betas, pose_feature):
     return v_template.new_empty((betas.shape[0],) + tuple(v_template.shape))
+
+
+def _setup_backward(ctx, inputs, output):
+    _, shapedirs, posedirs, betas, pose_feature = inputs
+    ctx.save_for_backward(shapedirs, posedirs, betas, pose_feature)
+
+
+def _backward(ctx, dv):
+    """Gradients of the sum (B,V,3): the coefficients get dv contracted
+    with their directions, v_template the batch sum of dv, and the
+    directions (only where asked for) dv contracted with their
+    coefficients. Counts one backward."""
+    shapedirs, posedirs, betas, pose_feature = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    b = dv.shape[0]
+    dv_rows = dv.reshape(b, -1)  # (B, V*3)
+    grads = [
+        dv.sum(0) if need[0] else None,
+        torch.einsum("bvk,bs->vks", dv, betas) if need[1] else None,
+        pose_feature.T @ dv_rows if need[2] else None,
+        torch.einsum("bvk,vks->bs", dv, shapedirs) if need[3] else None,
+        dv_rows @ posedirs.T if need[4] else None,
+    ]
+    blendshapes.backwards += 1
+    return tuple(grads)
+
+
+_op.register_autograd(_backward, setup_context=_setup_backward)

@@ -12,7 +12,10 @@ The wrapper calls the custom op `gaitlab::keypoint_attention_fused`, whose
 CUDA implementation is the kernel and whose CPU implementation is the plain
 version, so the device of the inputs picks one when the op runs: in eager
 code and inside a `torch.export` program alike (`serve.py`), where the op
-is one node of the graph.
+is one node of the graph. Its backward is plain torch code on either
+device (gaitlab's Pallas kernel has no backward either: gaitlab trains
+through XLA's autodiff of the plain pooling), so a training step runs the
+kernel forward and differentiates through the softmax by hand.
 
 The public signature is gaitlab's NHWC one. The kernel reads through
 strides, so the head passes its NCHW tensors as permuted views and no copy
@@ -121,13 +124,11 @@ def keypoint_attention_fused(features: torch.Tensor, cam_feats: torch.Tensor,
             raise ValueError("keypoint_attention_fused: all inputs must be on "
                              "one CUDA device (got "
                              f"{[str(a.device) for a in args]})")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        raise NotImplementedError(
-            "keypoint_attention_fused: the kernel has no backward")
     return torch.ops.gaitlab.keypoint_attention_fused(*args)
 
 
 keypoint_attention_fused.launches = 0
+keypoint_attention_fused.backwards = 0
 
 
 def _launch(features: torch.Tensor, cam_feats: torch.Tensor,
@@ -204,3 +205,34 @@ def _op_fake(features, cam_feats, heatmaps):
     b, j = features.shape[0], heatmaps.shape[-1]
     return (features.new_empty((b, j, features.shape[-1])),
             features.new_empty((b, j, cam_feats.shape[-1])))
+
+
+def _setup_backward(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, d_out1, d_out2):
+    """Gradients of both poolings: with attn = softmax over H*W of the
+    logits, d_features = attn^T d_out1, d_cam = attn^T d_out2, and the
+    logits get attn * (d_attn - sum_hw attn * d_attn) with d_attn =
+    d_out1 features^T + d_out2 cam^T. Each comes back in its input's
+    (B,H,W,C) shape; counts one backward."""
+    features, cam_feats, heatmaps = ctx.saved_tensors
+    b, h, w, _ = features.shape
+    hw = h * w
+    attn = torch.softmax(heatmaps.reshape(b, hw, -1), dim=1)  # (B,HW,J)
+    grads = [None, None, None]
+    d_attn = 0
+    for i, (x, d) in enumerate(((features, d_out1), (cam_feats, d_out2))):
+        if ctx.needs_input_grad[i]:
+            grads[i] = torch.bmm(attn, d).reshape(x.shape)
+        if ctx.needs_input_grad[2]:
+            d_attn = d_attn + torch.bmm(x.reshape(b, hw, -1), d.transpose(1, 2))
+    if ctx.needs_input_grad[2]:
+        grads[2] = (attn * (d_attn - (attn * d_attn).sum(1, keepdim=True))
+                    ).reshape(heatmaps.shape)
+    keypoint_attention_fused.backwards += 1
+    return tuple(grads)
+
+
+_op.register_autograd(_backward, setup_context=_setup_backward)

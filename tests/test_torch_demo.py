@@ -223,7 +223,8 @@ print(" ".join(names))
         "cli.fbx_output", "utils", "cli.batch_generation", "pipeline.medoids",
         "pipeline.openpose", "pipeline.boxes", "pipeline.datasets",
         "pipeline.data", "weights.torch_import", "serve", "cli.serve",
-        "weights.cache", "nn.resnet", "nn.spin")} <= names
+        "weights.cache", "nn.resnet", "nn.spin", "eval", "training",
+        "cli.train")} <= names
 
 
 def test_ops_import_no_model_code():

@@ -6,7 +6,8 @@ feature within rtol 1e-4 (atol 1e-6 for features that are 0), the
 heel-strike frame indices equal. A scorer fitted by gaitlab is carried
 over with scorer_from_flax and predicts the same labels, probabilities
 and severities (rtol 1e-5, atol 1e-6 where the sigmoid saturates near
-0) on the CPU.
+0) on the CPU; the port's own fit, from the same init, fits as gaitlab's
+does.
 """
 
 import jax.numpy as jnp
@@ -154,9 +155,40 @@ def test_score_clip_matches_gaitlab(cohort):
     assert set(plain) == {"features"}
 
 
-def test_fit_waits_for_training():
-    with pytest.raises(NotImplementedError, match="A14"):
-        pt_classify.fit(np.zeros((4, 10)), np.zeros(4))
+def test_fit_waits_for_training(cohort, monkeypatch):
+    """`fit` is ported (the name is the one the test had while fit raised):
+    from gaitlab's Flax init, carried over through the module's
+    init_state hook, 200 full-batch Adam steps on the cohort reach
+    gaitlab's fit: the same labels, probabilities and severities within
+    rtol 1e-4, atol 1e-5 (float32 steps in two libraries' orders)."""
+    import jax
+
+    feats = cohort[0]
+    labels = np.arange(len(feats)) % 2
+    sev = np.where(labels == 0, 0.1, 0.8)
+    seed = 3
+
+    def flax_init(num_classes, num_features, s, device):
+        assert (num_classes, num_features, s) == (2, feats.shape[1], seed)
+        x = np.zeros((1, num_features), np.float32)
+        init = jax_classify.DementiaScorer(num_classes=num_classes).init(
+            jax.random.PRNGKey(s), x)
+        return pt_classify.scorer_from_flax(jax_classify.FittedScorer(
+            init, None, None, num_classes), device=device).params
+
+    monkeypatch.setattr(pt_classify, "init_state", flax_init)
+    kw = dict(severity=sev, num_classes=2, steps=200, seed=seed)
+    want_fit = jax_classify.fit(feats, labels, **kw)
+    got_fit = pt_classify.fit(feats, labels, device="cpu", **kw)
+    np.testing.assert_allclose(got_fit.mean, want_fit.mean, rtol=1e-6)
+    np.testing.assert_allclose(got_fit.std, want_fit.std, rtol=1e-6)
+    want = jax_classify.predict(want_fit, feats)
+    got = pt_classify.predict(got_fit, feats)
+    np.testing.assert_array_equal(got["label"], want["label"])
+    np.testing.assert_array_equal(got["label"], labels)
+    for k in ("probs", "severity"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
 
 
 def test_scorer_goes_to_the_card_by_default(cohort):
