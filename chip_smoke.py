@@ -129,15 +129,37 @@ Phases, each of which exits non-zero on failure:
              --gait --data synthetic` at its defaults, every B1 call
              checked, steps/s; (f) classify.fit and eval.evaluate_batch
              card against CPU
+ 14. parallel parallelism over a device list that names the card twice
+             (parallel.mesh.default_devices swapped), with phase 3's
+             checkpoint: (a) GRNetRunner(parallel="dp") on phase 3's two
+             tracks against the one-device runner, each replica's kernel
+             calls on its own stream and all checked, frames/s at bucket
+             256 with two replicas and with one, a profile of one bucket
+             (kernel time by stream, and how long both streams ran at
+             once); (b) MAX-GRNet data-parallel on 200 frames at bucket
+             256 against the one-device runner; (c) GRNetPipeline over two
+             stages at its default microbatch against the one-device
+             forward (B1 and B2 once per microbatch), host ms of both on
+             256 crops, and `demo --tracking_path --parallel dp` and `pp`
+             against phase 3's pkl; (d) three steps of
+             training.make_dp_train_step at batch 32 over two replicas
+             against three one-device steps (losses, head, bit-unchanged
+             backbone and BN buffers, both ops' forwards and backwards in
+             each replica), the step's ms both ways; (e) with the cards as
+             they are, `cli.train --use_mesh` (one card: the plain step)
+             and `demo --parallel pp` (one card: ValueError). Where more
+             than one card is visible, (a) also runs over all of them
 Two lines before the last list every kernel as JSON: launches_by_path
 holds the launches of each main path, phase 6's `--smooth` demo
 ("demo_smooth"), phase 8's two-pass `analyze_video` ("api_gait"), phase
 9's default demo ("demo_render"), phase 10's batch_generation from
 the folder ("batchgen"), phase 11's `cli.serve run` ("serve_run"),
-phase 12's HMR forward ("hmr"), and phase 13's first `cli.train` run
-("train") and gait trainer ("train_gait"), each counted from 0 just
+phase 12's HMR forward ("hmr"), phase 13's first `cli.train` run
+("train") and gait trainer ("train_gait"), and phase 14's `demo
+--parallel dp` ("parallel_dp") and `--parallel pp` ("parallel_pp") and
+its data-parallel train steps ("train_dp"), each counted from 0 just
 before its run; launches is their sum; max_abs_err is the largest over
-phases 2, 6, 8, 10, 11, 12 and 13 (13's backwards included); fwd_bwd_ms
+phases 2, 6, 8, 10, 11, 12, 13 (13's backwards included) and 14; fwd_bwd_ms
 holds phase 13's forward + backward timings. Kernel calls are seen at the ops' CUDA implementations, so
 calls from inside a loaded torch.export program are counted and checked
 too. The line before the last holds the card's name and power limit, and the
@@ -238,6 +260,17 @@ TRAIN_F64_FACTOR = 3.0
 FIT_N = 64  # clips of the seeded cohort
 FIT_ATOL = 1e-4  # classify.fit card against CPU: probabilities
 EVAL_RTOL = 1e-4  # evaluate_batch card against CPU, relative
+PAR_REPLICAS = 2  # replicas (or pipeline stages) sharing the one card
+PAR_BUCKET = 256
+PAR_GAIT_FRAMES = 200  # at bucket 256: a padded tail
+PAR_TRAIN_STEPS = 3
+# parallel paths against the one-device path: the same frames in other
+# batch sizes (cuDNN may pick other algorithms): joints and vertices
+# within PAR_M_ATOL metres, other outputs within PAD_ATOL x max(1,
+# max|.|); the DP train step's losses within PAR_LOSS_RTOL, relative, and
+# its head within TRAIN_CPU_RTOL x max(1, max|.|)
+PAR_M_ATOL = 1e-4
+PAR_LOSS_RTOL = 1e-4
 
 
 def log(*a):
@@ -477,19 +510,26 @@ def calibrated_model(vid: str, trackfile: str, workdir: str):
     return model, crops, ckpt
 
 
-def drive_demo(argv: list, out_dir: str, stem: str, video: bool = False):
-    """demo.main(argv) with the kernels' counts set to 0 just before it;
-    returns (the saved pkl, the counts just after, wall seconds). Video
-    output is off (--save_vid) unless `video`. With the smoke's checkpoint
-    the run must write exactly one pkl, smoke_ckpt.pkl."""
-    from gaitlab_torch.cli import demo
+def zeroed_counts():
+    """The kernels' wrappers, each count set to 0."""
     from gaitlab_torch.ops.blendshapes import blendshapes
     from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
 
     fns = {"blendshapes": blendshapes,
            "keypoint_attention": keypoint_attention_fused}
     for fn in fns.values():
-        fn.launches = 0
+        fn.launches = fn.backwards = 0
+    return fns
+
+
+def drive_demo(argv: list, out_dir: str, stem: str, video: bool = False):
+    """demo.main(argv) with the kernels' counts set to 0 just before it;
+    returns (the saved pkl, the counts just after, wall seconds). Video
+    output is off (--save_vid) unless `video`. With the smoke's checkpoint
+    the run must write exactly one pkl, smoke_ckpt.pkl."""
+    from gaitlab_torch.cli import demo
+
+    fns = zeroed_counts()
     t0 = time.perf_counter()
     demo.main(demo.build_parser().parse_args(
         [*argv, "--output_folder", out_dir] + ([] if video else ["--save_vid"])))
@@ -870,7 +910,9 @@ def kernel_spies(check: bool):
     {"calls": {kernel: [(shapes, errors or None)]}, "smooth": ...}, where
     errors holds the largest |kernel - plain|, the largest |plain|, and
     kernel's and plain's largest error against the plain version in
-    float64."""
+    float64, and "streams": {kernel: [the CUDA stream of each call]}."""
+    import torch
+
     from gaitlab_torch.device import float32_math
     from gaitlab_torch.ops import blendshapes as b2
     from gaitlab_torch.ops import keypoint_attention as b1
@@ -879,7 +921,8 @@ def kernel_spies(check: bool):
     sites = {"keypoint_attention": (b1, "_launch",
                                     b1.keypoint_attention_plain),
              "blendshapes": (b2, "_launch", b2.blendshapes_plain)}
-    seen = {"calls": {name: [] for name in sites}, "smooth": None}
+    seen = {"calls": {name: [] for name in sites}, "smooth": None,
+            "streams": {name: [] for name in sites}}
     originals = {name: getattr(owner, attr)
                  for name, (owner, attr, _) in sites.items()}
     smooth_pose = smoothing.smooth_pose
@@ -908,6 +951,8 @@ def kernel_spies(check: bool):
                            plain64=max_err(ref, ref64))
             seen["calls"][name].append(
                 (tuple(tuple(a.shape) for a in args), err))
+            seen["streams"][name].append(
+                torch.cuda.current_stream(args[0].device).stream_id)
             return out
         return wrapper
 
@@ -2496,14 +2541,9 @@ def drive_train(argv: list) -> tuple:
     just before it. Returns (model, state, counts, calls, messages,
     wall s)."""
     from gaitlab_torch.cli import train
-    from gaitlab_torch.ops.blendshapes import blendshapes
-    from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
 
-    fns = {"blendshapes": blendshapes,
-           "keypoint_attention": keypoint_attention_fused}
     with kernel_spies(check=True) as seen, logged_messages() as msgs:
-        for fn in fns.values():
-            fn.launches = fn.backwards = 0
+        fns = zeroed_counts()
         t0 = time.perf_counter()
         out = train.main(train.build_parser().parse_args(argv))
         wall = time.perf_counter() - t0
@@ -2860,6 +2900,400 @@ def train_phase(ckpt: str, workdir: str, trackfile: str) -> tuple:
     return launches, gait_launches, errs, bwd_times
 
 
+# ---------------------------------------------------------------------------
+# phase 14: parallelism over a device list (two replicas or stages per card)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def card_list(devices: list):
+    """parallel.mesh.default_devices (every visible card) swapped for
+    `devices` while inside: the entry points then spread over them."""
+    from gaitlab_torch.parallel import mesh
+
+    saved = mesh.default_devices
+    mesh.default_devices = lambda: list(devices)
+    try:
+        yield
+    finally:
+        mesh.default_devices = saved
+
+
+def per_stream(tag: str, seen: dict, n_streams: int) -> None:
+    """Each kernel's calls spread evenly over `n_streams` CUDA streams (one
+    per replica), logged."""
+    import collections
+
+    for name, streams in seen["streams"].items():
+        by = collections.Counter(streams)
+        log(f"[{tag}] {name}: calls by stream {sorted(by.values())}")
+        if len(by) != n_streams or len(set(by.values())) != 1:
+            raise AssertionError(f"[{tag}] {name} did not launch in each "
+                                 f"replica: calls by stream {dict(by)}")
+
+
+def hold_outputs(tag: str, got: dict, want: dict, metres=(), keys=None):
+    """`metres` keys within PAR_M_ATOL (m), the others within PAD_ATOL x
+    max(1, max|want|)."""
+    keys = [k for k in (keys or want) if k not in metres]
+    close_enough(tag, got, want, metres, PAR_M_ATOL, scaled=False)
+    close_enough(tag, got, want, keys, PAD_ATOL)
+
+
+def stream_overlap(prof, path: str) -> str:
+    """From a profile's trace: each stream's kernel busy time, and how long
+    the two busiest streams ran kernels at once."""
+    def union(spans):
+        out = []
+        for a, b in sorted(spans):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    by = {}
+    for e in events:
+        by.setdefault(e["args"].get("stream"), []).append(
+            (e["ts"], e["ts"] + e["dur"]))
+    busy = {s: union(v) for s, v in by.items()}
+    anyone = sum(b - a for a, b in union([x for v in by.values() for x in v]))
+    top = sorted(busy, key=lambda s: -sum(b - a for a, b in busy[s]))[:2]
+    both = 0.0
+    if len(top) == 2:
+        for a0, b0 in busy[top[0]]:
+            for a1, b1 in busy[top[1]]:
+                both += max(0.0, min(b0, b1) - max(a0, a1))
+    return (f"kernel-busy ms by stream "
+            f"{[round(sum(b - a for a, b in busy[s]) / 1e3, 3) for s in top]}"
+            f" ({len(busy)} streams), both at once {both / 1e3:.3f} ms, some "
+            f"kernel running {anyone / 1e3:.3f} ms")
+
+
+def par_dp(model, tracks: list, workdir: str, card: list) -> dict:
+    """(a): GRNetRunner(parallel="dp") over two replicas on the card against
+    the one-device runner on phase 3's tracks, every kernel call checked;
+    frames/s at PAR_BUCKET with two replicas and with one; a profile of one
+    bucket. Returns the largest checked errors."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    single = GRNetRunner(model)
+    with card_list(card):
+        dp = GRNetRunner(model, parallel="dp")
+    reps = dp._dp[0]
+    if len(reps) != len(card) or reps.modules[0] is not model.module:
+        raise AssertionError("the DP runner's replicas")
+    with kernel_spies(check=True) as seen:
+        fns = zeroed_counts()
+        got = [dp.run_track(paths, bb) for paths, bb in tracks]
+        counts = {k: fn.launches for k, fn in fns.items()}
+    log(f"[parallel] GRNetRunner(parallel='dp') over {len(card)} replicas "
+        f"on phase 3's tracks ({[len(b) for _, b in tracks]} frames): "
+        f"launches {counts}")
+    errs = checked_errors("parallel", seen["calls"])
+    per_stream("parallel", seen, len(card))
+    if any(n != len(card) * len(tracks) for n in counts.values()):
+        raise AssertionError(f"[parallel] launches {counts}")
+    for g, (paths, bb) in zip(got, tracks):
+        hold_outputs("parallel dp vs one device", g,
+                     single.run_track(paths, bb), metres=("joints3d",))
+
+    paths, bb = tracks[0]
+    crops = single.crop_track(paths, bb)
+    x = crops.repeat(-(-PAR_BUCKET // len(crops)), 1, 1, 1)[:PAR_BUCKET]
+    ms = {name: events_ms(lambda r=r: r._forward_bucket(x))
+          for name, r in (("one device", single), ("dp", dp))}
+    log(f"[parallel] bucket {PAR_BUCKET} (CUDA events, median of 5): one "
+        f"device {ms['one device']:.2f} ms = "
+        f"{PAR_BUCKET / ms['one device'] * 1e3:.1f} frames/s; {len(card)} "
+        f"replicas {ms['dp']:.2f} ms = {PAR_BUCKET / ms['dp'] * 1e3:.1f} "
+        f"frames/s ({ms['one device'] / ms['dp']:.3f}x)")
+    dp._forward_bucket(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dp._forward_bucket(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"[parallel] profile of one DP bucket of {PAR_BUCKET}: device busy "
+        f"{total:.3f} ms (summed over streams) in a {wall_ms:.2f} ms window; "
+        + stream_overlap(prof, osp.join(workdir, "par_trace.json")))
+    return errs
+
+
+def par_gait(ckpt: str, workdir: str, trackfile: str, card: list) -> dict:
+    """(b): MAX-GRNet data-parallel (the per-frame part on the replicas,
+    the corrector on the gathered rows) against the one-device runner on
+    PAR_GAIT_FRAMES frames at bucket PAR_BUCKET."""
+    import torch
+
+    from gaitlab_torch import api
+    from gaitlab_torch.device import upload
+    from gaitlab_torch.pipeline.crop import normalize_image
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    model, _ = api.load_pipeline(ckpt=ckpt, use_gait_feat=True)
+    frames, bbox, cimg = gait_track(workdir, trackfile)
+    n = PAR_GAIT_FRAMES
+    bbox, cimg = bbox[:n], cimg[:n]
+    single = GRNetRunner(model, buckets=(PAR_BUCKET,))
+    crops = normalize_image(upload(single._host_crop(
+        frames[:n], bbox, single.bbox_scale), model.device))
+    with card_list(card):
+        dp = GRNetRunner(model, buckets=(PAR_BUCKET,), parallel="dp")
+    with kernel_spies(check=True) as seen:
+        fns = zeroed_counts()
+        got = dp.forward_crops(crops, bbox=bbox, cimg=cimg)
+        counts = {k: fn.launches for k, fn in fns.items()}
+    errs = checked_errors("parallel_gait", seen["calls"])
+    log(f"[parallel_gait] MAX-GRNet over {len(card)} replicas, {n} frames at "
+        f"bucket {PAR_BUCKET}: launches {counts} (B1 in each replica, B2 "
+        f"after the corrector on the first device)")
+    if counts != {"keypoint_attention": len(card), "blendshapes": 1}:
+        raise AssertionError(f"[parallel_gait] launches {counts}")
+    hold_outputs("parallel_gait dp vs one device", got,
+                 single.forward_crops(crops, bbox=bbox, cimg=cimg),
+                 metres=("kp_3d",), keys=("pred_avg", "pred_phase"))
+    del model, crops
+    torch.cuda.empty_cache()
+    return errs
+
+
+def par_pp(model, tracks: list, card: list) -> None:
+    """(c), first half: GRNetPipeline over two stages on the card at its
+    default microbatch against the one-device forward on track 0; host ms
+    of both (read-back included) on PAR_BUCKET crops."""
+    from gaitlab_torch.parallel.pipeline import GRNetPipeline
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    single = GRNetRunner(model)
+    paths, bb = tracks[0]
+    crops = single.crop_track(paths, bb)
+    pipe = GRNetPipeline(model, devices=card)
+    mb = pipe.default_microbatch(len(crops))
+    with kernel_spies(check=True) as seen:
+        fns = zeroed_counts()
+        got = pipe(crops)
+        counts = {k: fn.launches for k, fn in fns.items()}
+    checked_errors("parallel_pp", seen["calls"])
+    n_mb = -(-len(crops) // mb)
+    log(f"[parallel_pp] GRNetPipeline over {card}, {len(crops)} frames at "
+        f"microbatch {mb}: launches {counts} ({n_mb} microbatches)")
+    if any(c != n_mb for c in counts.values()):
+        raise AssertionError(f"[parallel_pp] launches {counts}")
+    want = {k: v.cpu().numpy() for k, v in model.forward(crops)[0].items()}
+    hold_outputs("parallel_pp vs one device", {k: v[0] for k, v in
+                                               got.items()},
+                 {k: v[0] for k, v in want.items()}, metres=("kp_3d",),
+                 keys=("theta", "verts", "kp_2d"))
+    x = crops.repeat(-(-PAR_BUCKET // len(crops)), 1, 1, 1)[:PAR_BUCKET]
+    ms = {}
+    for name, fn in (("one device", lambda: single.forward_crops(x)),
+                     ("pp", lambda: pipe(x))):
+        fn()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(times)
+    log(f"[parallel_pp] {PAR_BUCKET} crops, host ms with read-back (median "
+        f"of 3): one device {ms['one device']:.2f} = "
+        f"{PAR_BUCKET / ms['one device'] * 1e3:.1f} frames/s; pipeline at "
+        f"microbatch {pipe.default_microbatch(PAR_BUCKET)} {ms['pp']:.2f} = "
+        f"{PAR_BUCKET / ms['pp'] * 1e3:.1f} frames/s "
+        f"({ms['one device'] / ms['pp']:.3f}x)")
+
+
+def par_demos(vid: str, trackfile: str, ckpt: str, workdir: str,
+              card: list) -> tuple[dict, dict]:
+    """(c), second half: `demo --tracking_path --parallel dp` and `pp` over
+    two replicas or stages on the card, every kernel call checked, against
+    phase 3's pkl. Returns each run's launches and the largest errors."""
+    from gaitlab_torch.cli.demo import load_pickle
+
+    want = load_pickle(osp.join(workdir, "out", "walk_mp4", "smoke_ckpt.pkl"))
+    launches, errs = {}, {}
+    for mode in ("dp", "pp"):
+        with card_list(card), kernel_spies(check=True) as seen:
+            saved, launches[mode], wall = drive_demo(
+                ["--vid_file", vid, "--tracking_path", trackfile, "--ckpt",
+                 ckpt, "--parallel", mode],
+                osp.join(workdir, f"out_{mode}"), "walk_mp4")
+        log(f"[parallel_{mode}] demo --tracking_path --parallel {mode}: "
+            f"{wall:.2f} s, kernel launches {launches[mode]}")
+        errs[mode] = checked_errors(f"parallel_{mode}", seen["calls"])
+        if mode == "dp":
+            per_stream("parallel_dp", seen, len(card))
+        if set(saved) != set(want):
+            raise AssertionError(f"--parallel {mode}: persons {list(saved)}")
+        for pid in want:
+            check_person(pid, saved[pid])
+            if list(saved[pid]["frame_ids"]) != list(want[pid]["frame_ids"]):
+                raise AssertionError(f"--parallel {mode}: frame ids")
+            hold_outputs(f"parallel_{mode} pkl vs phase 3, person {pid}",
+                         saved[pid], want[pid], metres=("joints3d",),
+                         keys=("pred_cam", "orig_cam", "verts", "pose",
+                               "betas", "joints2d"))
+    return launches, {k: max(e[k] for e in errs.values())
+                      for k in errs["dp"]}
+
+
+def par_train(ckpt: str, workdir: str, card: list) -> tuple[dict, dict]:
+    """(d): PAR_TRAIN_STEPS steps of make_dp_train_step at TRAIN_BATCH over
+    two replicas on the card against as many one-device steps from the
+    same weights and batches; then the step's ms both ways. Returns the
+    launches of the DP steps and the largest checked errors."""
+    import torch
+
+    from gaitlab_torch import training
+    from gaitlab_torch.cli import train
+    from gaitlab_torch.cli.demo import build_model
+
+    data = train._load_shards(osp.join(workdir, "train_data", "shard*.npz"))
+    batches = [train._to_device(b, "cuda") for b in train._batches(
+        data, TRAIN_BATCH, PAR_TRAIN_STEPS, SEED)]
+    runs = {}
+    for name, devices in (("one device", None), ("dp", card)):
+        model = build_model(ckpt)
+        core = model.module
+        start = {k: v.cpu() for k, v in core.state_dict().items()}
+        opt, sched = training.make_optimizer(
+            training.trainable_parameters(core), lr=5e-5)
+        if devices is None:
+            step = training.make_train_step(core, model.smpl, opt,
+                                            scheduler=sched)
+        else:
+            step = training.make_dp_train_step(core, model.smpl, opt,
+                                               devices, scheduler=sched)
+        with kernel_spies(check=devices is not None) as seen:
+            fns = zeroed_counts()
+            losses = [float(step(b)["loss"]) for b in batches]
+            counts = {k: (fn.launches, fn.backwards)
+                      for k, fn in fns.items()}
+        runs[name] = (losses, {k: v.cpu() for k, v in
+                               core.state_dict().items()}, start, counts,
+                      seen, step)
+        del model, core, opt
+    (l1, s1, start, _, _, step1), (l2, s2, _, counts, seen, step2) = (
+        runs["one device"], runs["dp"])
+    errs = checked_errors("train_dp", seen["calls"])
+    per_stream("train_dp", seen, len(card))
+    log(f"[train_dp] {PAR_TRAIN_STEPS} steps at batch {TRAIN_BATCH} over "
+        f"{len(card)} replicas: losses {l2}; one device {l1}; (launches, "
+        f"backwards) {counts}")
+    n = len(card) * PAR_TRAIN_STEPS
+    if any(c != (n, n) for c in counts.values()):
+        raise AssertionError(f"[train_dp] (launches, backwards) {counts}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
+    log(f"[train_dp] losses: largest relative difference {rel:.3e} (limit "
+        f"{PAR_LOSS_RTOL:g})")
+    if not rel <= PAR_LOSS_RTOL:
+        raise AssertionError("[train_dp] losses disagree")
+    head = [k for k in s1 if k.startswith("head.")
+            and not k.endswith(("running_mean", "running_var",
+                                "num_batches_tracked"))]
+    frozen = [k for k in s1 if k not in head]
+    close_enough("train_dp head vs one device", s2, s1, head, TRAIN_CPU_RTOL)
+    moved = max(float((s2[k] - s1[k]).abs().max()
+                      / max((s1[k] - start[k]).abs().max(), 1e-30))
+                for k in head if k != "head.keypoint_final_layer.bias")
+    unchanged = [k for k in frozen if not torch.equal(s2[k], start[k])]
+    log(f"[train_dp] head: largest difference over distance moved "
+        f"{moved:.3e}; {len(frozen)} backbone parameters and BN buffers "
+        f"bit-unchanged: {not unchanged}")
+    if unchanged:
+        raise AssertionError(f"[train_dp] changed {unchanged[:3]}")
+    b = batches[0]
+    ms = {name: events_ms(lambda s=s: s(b))
+          for name, s in (("one device", step1), ("dp", step2))}
+    log(f"[train_dp] train step at batch {TRAIN_BATCH} (CUDA events, median "
+        f"of 5): one device {ms['one device']:.2f} ms = "
+        f"{TRAIN_BATCH / ms['one device'] * 1e3:.1f} samples/s; "
+        f"{len(card)} replicas {ms['dp']:.2f} ms = "
+        f"{TRAIN_BATCH / ms['dp'] * 1e3:.1f} samples/s")
+    for name, s in (("one device", step1), ("dp", step2)):
+        profiled("train_dp", f"one train step at batch {TRAIN_BATCH}, "
+                 f"{name}", lambda s=s: s(b), top=4)
+    return {k: c[0] for k, c in counts.items()}, errs
+
+
+def par_one_card(vid: str, trackfile: str, ckpt: str, workdir: str) -> None:
+    """(e): with the visible cards as they are, `train --use_mesh` on one
+    card takes the plain step and `demo --parallel pp` raises gaitlab's
+    ValueError (a pipeline needs two devices)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    _, _, _, _, msgs, _ = drive_train(
+        ["--data", osp.join(workdir, "train_data", "shard*.npz"),
+         "--workdir", osp.join(workdir, "train_mesh"), "--init_ckpt", ckpt,
+         "--use_mesh", "--steps", "1", "--batch_size", str(TRAIN_BATCH)])
+    said = [m for m in msgs if m.startswith("--use_mesh")]
+    log(f"[parallel] {n} visible card(s): cli.train --use_mesh logged {said}")
+    if n == 1 and said != ["--use_mesh: one device, the plain step"]:
+        raise AssertionError("--use_mesh on one card")
+    try:
+        drive_demo(["--vid_file", vid, "--tracking_path", trackfile,
+                    "--ckpt", ckpt, "--parallel", "pp"],
+                   osp.join(workdir, "out_pp_one"), "walk_mp4")
+    except ValueError as e:
+        log(f"[parallel] demo --parallel pp on {n} card(s) raised "
+            f"ValueError: {e}")
+        if n > 1:
+            raise
+    else:
+        log(f"[parallel] demo --parallel pp ran over {n} cards")
+        if n == 1:
+            raise AssertionError("demo --parallel pp ran on one card")
+
+
+def parallel_phase(vid: str, trackfile: str, ckpt: str, workdir: str
+                   ) -> tuple[dict, dict, dict, dict]:
+    """Phase 14. Returns the launches of `demo --parallel dp`, `demo
+    --parallel pp` and the DP train steps, and each kernel's largest
+    checked error."""
+    import numpy as np
+    import torch
+
+    from gaitlab_torch.cli.demo import build_model, load_pickle
+    from gaitlab_torch.pipeline import video
+
+    t0 = time.perf_counter()
+    card = [torch.device("cuda", 0)] * PAR_REPLICAS
+    paths = video.list_image_files(osp.join(workdir, "calib"))
+    tracks = [([paths[i] for i in t["frames"]],
+               np.asarray(t["bbox"], np.float32))
+              for t in load_pickle(trackfile).values()]
+    model = build_model(ckpt)
+    errs = [par_dp(model, tracks, workdir, card)]
+    if torch.cuda.device_count() > 1:
+        everyone = [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        errs.append(par_dp(model, tracks, workdir, everyone))
+    par_pp(model, tracks, card)
+    del model
+    torch.cuda.empty_cache()
+    errs.append(par_gait(ckpt, workdir, trackfile, card))
+    demo_launches, demo_errs = par_demos(vid, trackfile, ckpt, workdir, card)
+    train_launches, train_errs = par_train(ckpt, workdir, card)
+    par_one_card(vid, trackfile, ckpt, workdir)
+    errs += [demo_errs, train_errs]
+    log(f"[parallel] phase 14 took {time.perf_counter() - t0:.1f} s")
+    return (demo_launches["dp"], demo_launches["pp"], train_launches,
+            {k: max(e[k] for e in errs) for k in errs[0]})
+
+
 def main() -> int:
     import torch
 
@@ -2918,17 +3352,21 @@ def main() -> int:
         hmr_launches, hmr_errs = hmr_phase(workdir, trackfile)
         train_launches, train_gait_launches, train_errs, bwd_times = \
             train_phase(ckpt, workdir, trackfile)
+        dp_launches, pp_launches, train_dp_launches, par_errs = \
+            parallel_phase(vid, trackfile, ckpt, workdir)
     paths = {"demo_smooth": launches, "api_gait": gait_launches,
              "demo_render": render_launches, "batchgen": bg_launches,
              "serve_run": serve_launches, "hmr": hmr_launches,
-             "train": train_launches, "train_gait": train_gait_launches}
+             "train": train_launches, "train_gait": train_gait_launches,
+             "parallel_dp": dp_launches, "parallel_pp": pp_launches,
+             "train_dp": train_dp_launches}
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         r["max_abs_err"] = max(r["max_abs_err"], path_errs[r["name"]],
                                gait_errs[r["name"]], bg_errs[r["name"]],
                                serve_errs[r["name"]], hmr_errs[r["name"]],
-                               train_errs[r["name"]])
+                               train_errs[r["name"]], par_errs[r["name"]])
         r["fwd_bwd_ms"] = bwd_times[r["name"]]
 
     keys = ("name", "route", "source", "replaces", "launches",

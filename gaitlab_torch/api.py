@@ -23,22 +23,21 @@ def load_pipeline(ckpt: str = "", smpl_model: Optional[str] = None,
                   use_gait_feat: bool = False, precision: str = "float32",
                   device=None, mesh=None):
     """(model, runner) ready for repeated video analysis, on `device`
-    (None: the card). Only precision="float32" (TF32 off) is ported; other
-    precisions and `mesh` raise NotImplementedError, as the runner does.
-    With `use_gait_feat`, a reference checkpoint fills the trunk and the
-    gait corrector keeps its random init (no reference checkpoint carries
-    one)."""
+    (None: the card). `mesh` (parallel.make_mesh) splits each bucket over
+    replicas on its data axis. Only precision="float32" (TF32 off) is
+    ported; other precisions raise NotImplementedError, as the runner
+    does. With `use_gait_feat`, a reference checkpoint fills the trunk and
+    the gait corrector keeps its random init (no reference checkpoint
+    carries one)."""
     from gaitlab_torch.cli.demo import build_model
     from gaitlab_torch.pipeline.runner import GRNetRunner
 
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet")
     if precision != "float32":  # before building a model
         raise NotImplementedError(f"precision={precision!r} is not ported "
                                   "yet; use 'float32'")
     model = build_model(ckpt, smpl_model, device=device,
                         use_gait_feat=use_gait_feat)
-    return model, GRNetRunner(model, precision=precision)
+    return model, GRNetRunner(model, precision=precision, mesh=mesh)
 
 
 def analyze_video(vid_file: str, ckpt: str = "",

@@ -13,9 +13,11 @@ output is on unless --save_vid is passed: a skeleton overlay beside a 3D
 panel, or with --mesh_render the SMPL mesh (--wireframe, --sideview);
 --save_obj writes one .obj per person and frame. With video output on,
 --stream and --onepass fall back to the frame folder, as in gaitlab.
-Runs on CUDA unless --cpu_only is given. Paths of gaitlab's demo that are
-not ported yet raise NotImplementedError: --precision other than float32,
-and --parallel.
+Runs on CUDA unless --cpu_only is given. --parallel dp splits each bucket
+over every visible card, --parallel pp runs the 2-stage pipeline over them
+(it needs two devices); with --cpu_only the device list is the CPU alone.
+The path of gaitlab's demo that is not ported yet raises
+NotImplementedError: --precision other than float32.
 
 Usage:
   python -m gaitlab_torch.cli.demo --vid_file clip.mp4 \
@@ -104,7 +106,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "ported, and it is the default.")
     p.add_argument("--parallel", type=str, default=None,
                    choices=["dp", "pp"],
-                   help="multi-card strategy (not ported yet).")
+                   help="multi-card strategy: 'dp' splits frame batches "
+                        "over every visible card; 'pp' runs a 2-stage "
+                        "pipeline (backbone group | head+SMPL group) over "
+                        "them.")
     return p
 
 
@@ -113,7 +118,6 @@ def check_ported(args) -> None:
     unported = {
         f"--precision {args.precision}": args.precision not in (None,
                                                                 "float32"),
-        f"--parallel {args.parallel}": args.parallel is not None,
     }
     missing = [k for k, on in unported.items() if on]
     if missing:
@@ -293,14 +297,15 @@ def _person_output(out, bboxes, frames, person_id, args, model, orig_width,
 
 def _runner_kwargs(args) -> dict:
     """--grnet_batch_size caps the bucket sizes (450, the default, equals
-    the largest default bucket)."""
+    the largest default bucket); --parallel goes through."""
     from gaitlab_torch.pipeline.runner import DEFAULT_BUCKETS
 
+    kw = {"parallel": args.parallel}
     gbs = int(args.grnet_batch_size or 0)
     if gbs and gbs != 450:
-        return {"buckets": tuple(sorted(
-            {b for b in DEFAULT_BUCKETS if b < gbs} | {gbs}))}
-    return {}
+        kw["buckets"] = tuple(sorted(
+            {b for b in DEFAULT_BUCKETS if b < gbs} | {gbs}))
+    return kw
 
 
 def _save(args, grnet_results: dict, output_path: str) -> str:

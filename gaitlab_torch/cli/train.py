@@ -10,13 +10,14 @@ Counterpart of gaitlab/cli/train.py, with gaitlab's flags:
   * step: gaitlab_torch.training (the head only; the backbone is frozen
     and every BatchNorm keeps its statistics), on the card unless the
     caller asks for the CPU (`main(args, device="cpu")`);
+  * --use_mesh: the step data-parallel over every visible card
+    (training.make_dp_train_step over make_mesh()'s data axis) when
+    there is more than one, the plain step otherwise, as gaitlab's
+    `len(jax.devices()) > 1`; on the CPU, one device;
   * checkpoints: model, optimizer, scheduler and step in one torch file,
     <workdir>/ckpt.pt (ckpt_gait.pt for --gait), every --save_every steps
     and at the last; --resume restores them and restarts the batch
     stream at --seed, as gaitlab does.
-
---use_mesh (data parallel over several devices) raises: it waits for the
-port's parallelism (ROADMAP A18).
 """
 
 from __future__ import annotations
@@ -51,8 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch checkpoint to initialise from")
     p.add_argument("--smpl_model", type=str, default=None)
     p.add_argument("--use_mesh", action="store_true",
-                   help="data parallel over all visible devices (not "
-                        "ported: raises)")
+                   help="data parallel over all visible devices")
     p.add_argument("--gait", action="store_true",
                    help="train the gait-branch FeatCorrector on real trunk "
                         "pose features (training.trunk_gait_batch): "
@@ -125,6 +125,14 @@ def _train(state, step_fn, batches, first: int, args, logger, ckpt: str,
             logger.info(f"{what}checkpoint saved at step {i}")
 
 
+def mesh_devices(device) -> list:
+    """--use_mesh's devices for a model on `device`: the data axis of a
+    mesh over every visible card, or the CPU alone."""
+    from gaitlab_torch.parallel import mesh
+
+    return mesh.make_mesh(devices=mesh.devices_for(device)).data_devices
+
+
 def _resume(state, args, ckpt: str, logger) -> int:
     if args.resume and osp.isfile(ckpt):
         state.load(ckpt)
@@ -139,10 +147,6 @@ def main(args, device=None):
     from gaitlab_torch.cli.demo import build_model
     from gaitlab_torch.utils import create_logger
 
-    if args.use_mesh:
-        raise NotImplementedError(
-            "--use_mesh: data-parallel training is not ported yet (ROADMAP "
-            "A18, parallelism)")
     os.makedirs(args.workdir, exist_ok=True)
     logger = create_logger(args.workdir, phase="train")
     if args.gait:
@@ -154,9 +158,18 @@ def main(args, device=None):
     state = training.TrainState(model.module, optimizer, scheduler)
     ckpt = osp.abspath(osp.join(args.workdir, "ckpt.pt"))
     start_step = _resume(state, args, ckpt, logger)
-    step_fn = training.make_train_step(model.module, model.smpl, optimizer,
-                                       joint_mode=model.joint_mode,
-                                       scheduler=scheduler)
+    devices = mesh_devices(model.device) if args.use_mesh else []
+    if len(devices) > 1:
+        logger.info(f"--use_mesh: data parallel over {len(devices)} devices")
+        step_fn = training.make_dp_train_step(
+            model.module, model.smpl, optimizer, devices,
+            joint_mode=model.joint_mode, scheduler=scheduler)
+    else:
+        if args.use_mesh:
+            logger.info("--use_mesh: one device, the plain step")
+        step_fn = training.make_train_step(
+            model.module, model.smpl, optimizer, joint_mode=model.joint_mode,
+            scheduler=scheduler)
 
     data = _load_shards(args.data)
     logger.info(f"{data['images'].shape[0]} samples loaded")

@@ -77,24 +77,41 @@ class GRNetCore(nn.Module):
         on the device) says how many leading frames are real when the
         runner pads the track to a bucket: padded frames then stay out of
         the gait GRU and attention."""
+        if not self.use_gait_feat:
+            return self.head(self._features(images))
+        return self.track_part(self.frame_part(images, bbox, cimg), n_valid)
+
+    def _features(self, images: torch.Tensor) -> torch.Tensor:
         if self.freeze_backbone and torch.is_grad_enabled():
             with torch.no_grad():
-                features = self.backbone(images)
-        else:
-            features = self.backbone(images)
-        if not self.use_gait_feat:
-            return self.head(features)
+                return self.backbone(images)
+        return self.backbone(images)
+
+    def frame_part(self, images: torch.Tensor, bbox: torch.Tensor,
+                   cimg: torch.Tensor) -> dict:
+        """The gait branch's per-frame part, which a data-parallel runner
+        splits over replicas: the backbone, the PARE feature extractor, the
+        first prediction and the camera reparametrisation ->
+        {"point_local_feat", "cam_shape_feats", "pred_segm_mask",
+        "cparams"}, one row per frame."""
         if bbox is None or cimg is None:
             raise ValueError("the gait branch needs bbox and cimg")
-        feats = self.head.feature_extractor(features)
+        feats = self.head.feature_extractor(self._features(images))
         patt = self.head.predict(feats["point_local_feat"],
                                  feats["cam_shape_feats"])
-        cparams = camera_reparam(patt["pred_cam"], bbox, cimg)
+        feats["cparams"] = camera_reparam(patt["pred_cam"], bbox, cimg)
+        return feats
+
+    def track_part(self, frames: dict, n_valid=None) -> dict:
+        """The gait branch's part over the whole track: the corrector on
+        frame_part's rows, then the second prediction."""
+        cparams = frames["cparams"]
         corrected, pred_avg, pred_phase = self.pfeat_corrector(
-            feats["point_local_feat"][None], cparams[None],
+            frames["point_local_feat"][None], cparams[None],
             None if n_valid is None else torch.as_tensor(n_valid).reshape(1))
-        out = self.head.predict(corrected[0], feats["cam_shape_feats"])
-        out["pred_segm_mask"] = feats["pred_segm_mask"]
+        out = self.head.predict(corrected[0], frames["cam_shape_feats"])
+        if "pred_segm_mask" in frames:
+            out["pred_segm_mask"] = frames["pred_segm_mask"]
         out["pred_avg"] = pred_avg
         out["pred_phase"] = pred_phase
         out["pred_cparam"] = cparams

@@ -101,6 +101,17 @@ def library(name: str) -> ctypes.CDLL:
     return build_all()[name]
 
 
+_count_lock = threading.Lock()
+
+
+def count(wrapper, attr: str = "launches") -> None:
+    """Add one to a wrapper's count of kernel launches (or of backwards):
+    replicas launch from several threads at once, and `+= 1` on an
+    attribute is no atomic update."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if code != 0:

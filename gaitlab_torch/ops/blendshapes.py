@@ -126,7 +126,7 @@ def _launch(v_template: torch.Tensor, shapedirs: torch.Tensor,
             v * 3, b, s, p, *plan.grid, plan.smem, plan.vec,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "blendshapes")
-    blendshapes.launches += 1
+    _build.count(blendshapes)
     return out
 
 
@@ -170,7 +170,7 @@ def _backward(ctx, dv):
         torch.einsum("bvk,vks->bs", dv, shapedirs) if need[3] else None,
         dv_rows @ posedirs.T if need[4] else None,
     ]
-    blendshapes.backwards += 1
+    _build.count(blendshapes, "backwards")
     return tuple(grads)
 
 

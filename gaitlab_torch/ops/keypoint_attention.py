@@ -184,7 +184,7 @@ def _launch(features: torch.Tensor, cam_feats: torch.Tensor,
             plan.split_len, plan.n_chunk, width, plan.smem,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "keypoint_attention")
-    keypoint_attention_fused.launches += 1
+    _build.count(keypoint_attention_fused)
     return out1, out2
 
 
@@ -231,7 +231,7 @@ def _backward(ctx, d_out1, d_out2):
     if ctx.needs_input_grad[2]:
         grads[2] = (attn * (d_attn - (attn * d_attn).sum(1, keepdim=True))
                     ).reshape(heatmaps.shape)
-    keypoint_attention_fused.backwards += 1
+    _build.count(keypoint_attention_fused, "backwards")
     return tuple(grads)
 
 

@@ -1,14 +1,16 @@
 """Track-level inference: frames -> crops -> bucketed GRNet -> numpy.
 
-Counterpart of gaitlab/pipeline/runner.py for one card in float32. Frames
-arrive in chunks (from memory, from image files through the prefetching
+Counterpart of gaitlab/pipeline/runner.py in float32. Frames arrive in
+chunks (from memory, from image files through the prefetching
 native loader, `ingest_chunk` at a time, or as a video reader decodes
 them) and are cropped on the device (small
 frames: only full frames cross to the card) or with cv2 on the host (large
 frames: only 224^2 crops cross). The model runs at a small set of batch
 sizes ("buckets"), with the tail padded by repeating its last crop, so
 that every forward has one of a few shapes. The weights stay on the
-model's device.
+model's device, and with a mesh (`parallel="dp"`) each bucket is split
+over replicas of the model on the mesh's data axis; `parallel="pp"` runs
+each track through the 2-stage pipeline of parallel/pipeline.py instead.
 
 Forwards go through a `ForwardStream` session (`open_stream`): crop chunks
 are fed as they come, a forward runs on the session's worker thread
@@ -34,13 +36,15 @@ import bisect
 import os
 import queue
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Optional, Sequence
 
 import numpy as np
 import torch
 
-from gaitlab_torch.device import upload
+from gaitlab_torch.device import float32_math, upload
+from gaitlab_torch.parallel import mesh as mesh_mod
+from gaitlab_torch.parallel.replicas import Replicas, gather, scatter
 from gaitlab_torch.pipeline import crop as crop_mod
 from gaitlab_torch.pipeline import loader
 
@@ -67,26 +71,58 @@ class GRNetRunner:
     # output keys read back to the host (None: all); the gait keys
     # pred_avg and pred_phase always come back when the model makes them
     fetch: Optional[Sequence[str]] = None
+    # a ("data", "model") mesh (parallel/mesh.py): each bucket is split
+    # evenly over replicas of the model on its data axis
+    mesh: Optional[mesh_mod.DeviceMesh] = None
+    # None: the model's device (or whatever `mesh` says); "dp": data
+    # parallel over the mesh, by default one over the model's devices
+    # (every visible card); "pp": the 2-stage pipeline (backbone group |
+    # head+SMPL group) over them. The gait branch: "dp" only
     parallel: Optional[str] = None
+    # "pp" only: the backbone group's size (default: half the devices)
+    pp_n_stage0: Optional[int] = None
     # the bucket forward takes raw uint8 crops and normalizes them itself
     # (a serving runner's programs): host crops then stay uint8 until then
     takes_uint8 = False
+    # with a mesh: the replicas and SMPL's tensors on each replica's device
+    _dp: Optional[tuple] = field(default=None, init=False, repr=False)
+    _pp: object = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         if self.precision != "float32":
             raise NotImplementedError(
                 f"precision={self.precision!r} is not ported yet; "
                 "use 'float32'")
-        if self.parallel is not None:
-            raise NotImplementedError(
-                f"parallel={self.parallel!r} is not ported yet")
+        if self.parallel not in (None, "dp", "pp"):
+            raise ValueError(f"parallel={self.parallel!r}: use 'dp'/'pp'")
+        if self.parallel == "pp" and self.mesh is not None:
+            raise ValueError("parallel='pp' builds its own device groups; "
+                             "drop mesh= (or use parallel='dp')")
+        if self.parallel == "pp" and self.model.module.use_gait_feat:
+            raise ValueError(
+                "parallel='pp' pipelines the per-frame trunk; the gait "
+                "branch is track-sequential — use parallel='dp'")
         if self.crop_on not in ("auto", "device", "host"):
             raise ValueError(f"crop_on={self.crop_on!r}: use auto/device/host")
+        if self.parallel == "dp" and self.mesh is None:
+            self.mesh = mesh_mod.make_mesh(
+                devices=mesh_mod.devices_for(self.model.device))
         if self.buckets is None:
             env = os.environ.get("GAITLAB_BUCKETS", "")
             self.buckets = (tuple(int(x) for x in env.split(",") if x)
                             if env else DEFAULT_BUCKETS)
+        if self.mesh is not None:
+            # each bucket splits evenly over the data axis
+            d = self.mesh.shape[mesh_mod.DATA_AXIS]
+            self.buckets = tuple({-(-b // d) * d for b in self.buckets})
+            reps = Replicas(self.model.module, self.mesh.data_devices)
+            self._dp = (reps, [self.model.smpl.to(dev)
+                               for dev in reps.devices])
         self.buckets = tuple(sorted(set(self.buckets)))
+        if self.parallel == "pp":  # before any decode: fail fast
+            from gaitlab_torch.parallel.pipeline import GRNetPipeline
+
+            self._pp = GRNetPipeline(self.model, n_stage0=self.pp_n_stage0)
 
     def _bucket(self, n: int) -> int:
         i = bisect.bisect_left(self.buckets, n)
@@ -118,12 +154,62 @@ class GRNetRunner:
         if self.model.module.use_gait_feat:
             kw = dict(bbox=_pad_rows(bbox, b), cimg=_pad_rows(cimg, b),
                       n_valid=m)
-        out = self.model.forward(crops, **kw)[0]
+        if self._dp is None:
+            out = self.model.forward(crops, **kw)[0]
+        else:
+            out = self._dp_forward(crops, **kw)
         res = {k: out[k][0, :m] for k in OUTPUT_KEYS + ("pred_phase",)
                if k in out}
         if "pred_avg" in out:
             res["pred_avg"] = out["pred_avg"]  # (1,3): one per forward
         return res
+
+    def _dp_forward(self, crops: torch.Tensor, bbox=None, cimg=None,
+                    n_valid: Optional[int] = None) -> dict:
+        """One padded bucket's forward, data-parallel over the mesh's data
+        axis: the bucket split evenly over the replicas, each replica's part
+        launched from its own thread on its own stream, the outputs gathered
+        in order onto the first replica's device (model.forward's dict
+        layout). With the gait branch the replicas run its per-frame part
+        (GRNetCore.frame_part), and the corrector, sequential over the
+        track, runs on the gathered rows on the first device, as gaitlab's
+        sharding has it: the trunk split, the GRU not."""
+        from gaitlab_torch.nn.grnet import vp_regress
+
+        reps, smpls = self._dp
+        dev0, joint_mode = reps.devices[0], self.model.joint_mode
+
+        def nchw(x):
+            return x.permute(0, 3, 1, 2).contiguous()
+
+        def whole(core, smpl, x):
+            out = vp_regress(smpl, core(nchw(x)), joint_mode=joint_mode)[0]
+            return {k: out[k] for k in OUTPUT_KEYS}
+
+        def frames(core, x, bb, ci):
+            out = core.frame_part(nchw(x), bb, ci)
+            del out["pred_segm_mask"]  # large, and nothing reads it
+            return out
+
+        parts = scatter(crops, reps.devices)
+        with float32_math(), torch.inference_mode():
+            if bbox is None:
+                return gather(reps.apply(whole, list(zip(smpls, parts))),
+                              dev0, dim=1)
+            rows = gather(reps.apply(frames, list(zip(
+                parts, scatter(bbox, reps.devices),
+                scatter(cimg, reps.devices)))), dev0)
+            patt = reps.modules[0].track_part(
+                rows, upload(torch.tensor(n_valid), dev0))
+            return vp_regress(smpls[0], patt, joint_mode=joint_mode)[0]
+
+    def _pp_forward(self, crops: torch.Tensor) -> dict:
+        """A whole track's normalized crops through the 2-stage pipeline
+        at its default microbatch: gaitlab's keys (theta, verts, kp_2d,
+        kp_3d) that `fetch` asks for, as numpy arrays."""
+        out = self._pp(crops)
+        want = set(OUTPUT_KEYS if self.fetch is None else self.fetch)
+        return {k: out[k][0] for k in OUTPUT_KEYS if k in want}
 
     def open_stream(self) -> "ForwardStream":
         """An incremental forward session: feed() crop chunks (and, for
@@ -294,13 +380,17 @@ class ForwardStream:
     caller must not write to it afterwards. finish() launches the tail,
     waits for the worker, reads the runner's `fetch` keys back once and
     merges; close() ends a session that will not finish. An error of a
-    forward raises at the next feed() or at finish()."""
+    forward raises at the next feed() or at finish(). With a mesh, the
+    worker drives the replicas (GRNetRunner._dp_forward); with
+    `parallel="pp"` the session keeps every chunk and hands the whole
+    track to the pipeline in finish(), as gaitlab does."""
 
     def __init__(self, runner: GRNetRunner):
         self.runner = runner
         self.device = runner.model.device
         self.gait = runner.model.module.use_gait_feat
-        self.max_b = runner.buckets[-1]
+        self.pp = runner.parallel == "pp"
+        self.max_b = 1 << 62 if self.pp else runner.buckets[-1]
         self._buf: list = []  # chunks (or their tails) not yet dispatched
         self._rows = {"bbox": [], "cimg": []}  # host rows not yet dispatched
         self._buffered = 0
@@ -410,6 +500,11 @@ class ForwardStream:
         if self._done:
             raise RuntimeError("finish() called twice")
         self._done = True
+        if self.pp:
+            if not self._buffered:
+                return {}
+            return self.runner._pp_forward(torch.cat(
+                [self._to_device(c) for c in self._take(self._buffered)]))
         if self._buffered:
             self._dispatch(self._buffered)
         self._join()

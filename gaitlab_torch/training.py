@@ -12,6 +12,8 @@ running statistics and no BN buffer changes. Unlike gaitlab's step, which
 hands `batch_stats` to the optimizer with the parameters, BN buffers are
 never optimized. Both kernels run forward in every step (B1 in the head,
 B2 in SMPL); their backwards are the ops' registered torch code.
+`make_dp_train_step` takes the same update data-parallel over a list of
+devices (parallel/replicas.py), for `cli.train --use_mesh`.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from gaitlab_torch.body import smpl as body_smpl
 from gaitlab_torch.device import float32_math, resolve_device, upload
 from gaitlab_torch.nn.gait import camera_reparam
 from gaitlab_torch.nn.grnet import GRNetCore, vp_regress
+from gaitlab_torch.parallel.replicas import Replicas, gather, scatter
 from gaitlab_torch.pipeline.crop import generate_patch_image, normalize_image
 from gaitlab_torch.weights import cache as wcache
 
@@ -166,14 +169,16 @@ def gait_loss(pred_avg, pred_phase, gt_avg, gt_phase, w_avg: float = 1.0,
                                                "loss_gait_phase": l_phase}
 
 
-def _step(optimizer, scheduler, loss_fn) -> dict:
+def _step(optimizer, scheduler, loss_fn, reduce=None) -> dict:
     """One update in float32 with TF32 off: zero the gradients, backward
-    from loss_fn()'s total, step optimizer and scheduler; the metrics come
-    back detached."""
+    from loss_fn()'s total, reduce() (where given), step optimizer and
+    scheduler; the metrics come back detached."""
     with float32_math():
         optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn()
         total.backward()
+        if reduce is not None:
+            reduce()
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -196,6 +201,62 @@ def make_train_step(core: GRNetCore, smpl: body_smpl.SMPLParams,
         return grnet_loss(out, batch, weights)
 
     return lambda batch: _step(optimizer, scheduler, lambda: loss_fn(batch))
+
+
+def make_dp_train_step(core: GRNetCore, smpl: body_smpl.SMPLParams,
+                       optimizer: torch.optim.Optimizer, devices,
+                       joint_mode: str = "spin2",
+                       weights: LossWeights = LossWeights(),
+                       scheduler=None) -> Callable[[dict], dict]:
+    """make_train_step's update, data-parallel over `devices` (one replica
+    of the core each, the first the core itself, on devices[0] where the
+    batch lies). The batch's images are split in equal row blocks, each
+    replica's forward is launched from its own thread on its own stream,
+    and the outputs are gathered in order onto the first device, where the
+    loss is computed on the whole batch, the unsharded math that gaitlab's
+    GSPMD step computes. One backward reaches every replica;
+    the replicas' gradients are summed onto the core's in replica order,
+    the optimizer (over the core's parameters) steps once, and the trained
+    parameters are copied back into the replicas (`step.replicas`). BN
+    buffers never change: every replica stays in eval mode."""
+    reps = Replicas(core, devices)
+    if reps.modules[0] is not core:
+        raise ValueError(f"the core must lie on devices[0] ({devices[0]})")
+    smpls = [smpl.to(d) for d in reps.devices]
+    params = [trainable_parameters(m) for m in reps.modules]
+
+    def forward(module, smpl_i, images):
+        module.eval()  # gaitlab applies the trunk with train=False
+        return vp_regress(smpl_i, module(images), batch_size=1,
+                          joint_mode=joint_mode)[0]
+
+    def loss_fn(batch):
+        outs = reps.apply(forward, list(zip(
+            smpls, scatter(batch["images"], reps.devices))))
+        return grnet_loss(gather(outs, reps.devices[0], dim=1), batch,
+                          weights)
+
+    def reduce():
+        for i, p in enumerate(params[0]):
+            for replica in params[1:]:
+                g = replica[i].grad
+                if g is not None:
+                    g = g.to(p.device)
+                    p.grad = g if p.grad is None else p.grad + g
+
+    def step(batch):
+        for replica in params[1:]:
+            for q in replica:
+                q.grad = None
+        metrics = _step(optimizer, scheduler, lambda: loss_fn(batch), reduce)
+        with torch.no_grad():
+            for replica in params[1:]:
+                for p, q in zip(params[0], replica):
+                    q.copy_(p)
+        return metrics
+
+    step.replicas = reps
+    return step
 
 
 def make_gait_train_step(module: nn.Module, optimizer: torch.optim.Optimizer,

@@ -6,6 +6,7 @@
     python3 scripts/torch_kernel_study.py gait
     python3 scripts/torch_kernel_study.py queue
     python3 scripts/torch_kernel_study.py serve
+    python3 scripts/torch_kernel_study.py dp
 
 `ab` times keypoint_attention_fused (B1) and blendshapes (B2) at B = 128,
 the main path's shapes, from the gaitlab_torch package of each TREE in
@@ -42,6 +43,15 @@ crops): export seconds and graph nodes, where loading goes
 the host ms of the program's input checks over its inputs, and the
 program's ms with and without those checks beside the live model's (CUDA
 events, median of 20), twice.
+
+`dp` studies data parallelism over two replicas of full-width GRNet that
+share the card (parallel/replicas.py; random weights from seed 0, random
+crops): at 32 and 256 rows, the forward (inference mode) and, at 32 rows,
+the train step's forward and backward (the head's loss on random
+labels), each three ways: on one device, over the two replicas with one
+launching thread and stream each (parallel_apply), and over the two
+replicas launched one after the other from the caller's thread on its
+stream. Host ms of a call ended by a synchronize, median of 5.
 """
 
 from __future__ import annotations
@@ -435,6 +445,67 @@ def serve_study() -> None:
         print(json.dumps(row), flush=True)
 
 
+def dp_study() -> None:
+    import statistics
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import card_line
+    from gaitlab_torch import training
+    from gaitlab_torch.device import float32_math
+    from gaitlab_torch.nn.grnet import GRNet, vp_regress
+    from gaitlab_torch.parallel.replicas import Replicas, gather, scatter
+
+    card = card_line()
+    model = GRNet.create(seed=0)
+    core, smpl = model.module, model.smpl
+    reps = Replicas(core, [torch.device("cuda", 0)] * 2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def forward(module, x):
+        return vp_regress(smpl, module(x))[0]
+
+    def host_ms(fn, reps_n=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps_n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def ways(x):
+        parts = scatter(x, reps.devices)
+        return {
+            "one device": lambda: forward(core, x),
+            "threads": lambda: gather(reps.apply(
+                forward, [(p,) for p in parts]), reps.devices[0], dim=1),
+            "one thread": lambda: gather(
+                [forward(m, p) for m, p in zip(reps.modules, parts)],
+                reps.devices[0], dim=1)}
+
+    with float32_math():
+        for rows in (32, 256):
+            x = torch.randn(rows, 3, 224, 224, device="cuda", generator=gen)
+            with torch.inference_mode():
+                ms = {k: host_ms(f) for k, f in ways(x).items()}
+            print(json.dumps({"card": card, "what": "forward", "rows": rows,
+                              "replicas": 2, "host_ms": ms}), flush=True)
+        rows = 32
+        x = torch.randn(rows, 3, 224, 224, device="cuda", generator=gen)
+        batch = training.synthetic_batch(rows, device="cuda")
+        ms = {}
+        for k, f in ways(x).items():
+            ms[k] = host_ms(lambda f=f: training.grnet_loss(
+                f(), batch)[0].backward())
+        print(json.dumps({"card": card, "what": "train forward + backward",
+                          "rows": rows, "replicas": 2, "host_ms": ms}),
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -454,6 +525,8 @@ def main() -> int:
         launch_queue()
     elif cmd == "serve":
         serve_study()
+    elif cmd == "dp":
+        dp_study()
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -132,8 +132,6 @@ def test_load_pipeline_on_the_cpu_and_its_refusals():
     assert model.module.use_gait_feat and runner.model is model
     with pytest.raises(NotImplementedError, match="precision"):
         pt_api.load_pipeline(device="cpu", precision="high")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pt_api.load_pipeline(device="cpu", mesh=object())
     with pytest.raises(FileNotFoundError):
         pt_api.load_pipeline(ckpt="no/such.pth", device="cpu")
     if not torch.cuda.is_available():

@@ -136,15 +136,14 @@ TRACKED = ["--vid_file", "x.mp4", "--tracking_path", "t.pkl"]
 
 @pytest.mark.parametrize("argv", [
     [*TRACKED, *flags] for flags in (
-        # video output (on unless --save_vid is passed), --mesh_render and
-        # --save_obj are ported; precision and parallel modes still raise
+        # video output (on unless --save_vid is passed), --mesh_render,
+        # --save_obj and --parallel are ported; precision modes still raise
+        # (test_torch_parallel_pipeline.py runs --parallel dp|pp)
         ["--precision", "high"],
         ["--save_vid", "--precision", "high"],
         ["--save_vid", "--precision", "default"],
-        ["--save_vid", "--parallel", "dp"],
-        ["--save_vid", "--parallel", "pp"],
         ["--mesh_render", "--precision", "default"],
-        ["--save_obj", "--parallel", "dp"])])
+        ["--parallel", "dp", "--precision", "high"])])
 def test_unported_paths_raise(argv):
     with pytest.raises(NotImplementedError, match="not ported"):
         pt_demo.main(pt_demo.build_parser().parse_args(argv))
@@ -224,7 +223,8 @@ print(" ".join(names))
         "pipeline.openpose", "pipeline.boxes", "pipeline.datasets",
         "pipeline.data", "weights.torch_import", "serve", "cli.serve",
         "weights.cache", "nn.resnet", "nn.spin", "eval", "training",
-        "cli.train")} <= names
+        "cli.train", "parallel", "parallel.mesh", "parallel.replicas",
+        "parallel.pipeline")} <= names
 
 
 def test_ops_import_no_model_code():

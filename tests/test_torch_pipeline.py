@@ -189,8 +189,7 @@ def test_config_matches():
 
 def test_runner_refuses_unported_modes():
     model = types.SimpleNamespace(device=torch.device("cpu"))
-    for kw in ({"precision": "high"}, {"precision": "default"},
-               {"parallel": "dp"}):
+    for kw in ({"precision": "high"}, {"precision": "default"}):
         with pytest.raises(NotImplementedError):
             pt_runner.GRNetRunner(model, **kw)
     with pytest.raises(ValueError):

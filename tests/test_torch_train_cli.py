@@ -134,10 +134,54 @@ def test_gait_trainer_synthetic_trunk(tmp_path, tiny, caplog):
     assert len(losses) == 2 and np.all(np.isfinite(losses))
 
 
-def test_use_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="A18"):
-        train.main_cli(["--data", "x.npz", "--workdir", str(tmp_path),
-                        "--use_mesh"], device="cpu")
+def test_use_mesh_raises(tmp_path, tiny, monkeypatch):
+    """--use_mesh splits each batch evenly over the devices: a batch of 3
+    over 2 raises, as gaitlab's sharded step refuses it."""
+    _make_shards(tmp_path)
+    monkeypatch.setattr(train, "mesh_devices",
+                        lambda device: [torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="split evenly"):
+        train.main_cli(["--data", str(tmp_path / "shard*.npz"), "--workdir",
+                        str(tmp_path / "run"), "--use_mesh", "--steps", "1",
+                        "--batch_size", "3"], device="cpu")
+
+
+def test_use_mesh_trains_data_parallel(tmp_path, tiny, caplog, monkeypatch):
+    """--use_mesh on the CPU is one device and takes the plain step; over
+    a device list that names the CPU twice it takes the data-parallel
+    step, whose losses agree with the plain step's within rtol 1e-5 and
+    whose trained head within 0.1 x lr (the CLI's Adam turns a gradient's
+    rounding noise into a step of up to lr; test_torch_parallel_train.py
+    holds the step under SGD), and whose checkpoint has the same keys."""
+    _make_shards(tmp_path)
+    common = ["--data", str(tmp_path / "shard*.npz"), "--steps", "2",
+              "--batch_size", "4", "--log_every", "1", "--use_mesh"]
+    runs = {}
+    for name, devices in (("plain", [torch.device("cpu")]),
+                          ("dp", [torch.device("cpu")] * 2)):
+        monkeypatch.setattr(train, "mesh_devices", lambda device: devices)
+        caplog.clear()
+        runs[name] = run(common + ["--workdir", str(tmp_path / name)], caplog)
+        runs[name] += ([m for m in messages(caplog)
+                        if m.startswith(("step ", "--use_mesh"))],)
+    (plain, _, plain_log), (dp, dp_state, dp_log) = runs["plain"], runs["dp"]
+    assert plain_log[0] == "--use_mesh: one device, the plain step"
+    assert dp_log[0] == "--use_mesh: data parallel over 2 devices"
+    loss = [[float(m.split("loss ")[1].split(" ")[0]) for m in log[1:]]
+            for log in (plain_log, dp_log)]
+    np.testing.assert_allclose(loss[1], loss[0], rtol=1e-5)
+    lr = train.build_parser().get_default("lr")
+    want = plain.module.state_dict()
+    trained = dict(dp.module.named_parameters())
+    for k, v in dp.module.state_dict().items():
+        if k == NOISE_ONLY:
+            continue
+        if k.startswith("head.") and k in trained:
+            assert (v - want[k]).abs().max() <= 0.1 * lr, k
+        else:  # the frozen backbone and every BN buffer
+            assert torch.equal(v, want[k]), k
+    saved = torch.load(osp.join(tmp_path, "dp", "ckpt.pt"), weights_only=True)
+    assert set(saved["module"]) == set(want) and dp_state.step == 2
 
 
 def test_train_needs_the_card_unless_asked(tmp_path):
