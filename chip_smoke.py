@@ -149,6 +149,23 @@ Phases, each of which exits non-zero on failure:
              they are, `cli.train --use_mesh` (one card: the plain step)
              and `demo --parallel pp` (one card: ValueError). Where more
              than one card is visible, (a) also runs over all of them
+ 15. precision the runner's modes with phase 3's checkpoint: (a) "float32",
+             "high" (upsample heads at w2x, head at "default"), "default"
+             and "high" with trunk_dtype="bfloat16", each at bucket 128 on
+             walk.mp4's crops: every kernel call held (B1 on bf16 inputs
+             under the bf16 trunk), the TF32 switches inside every
+             convolution (on under a TF32 mode, off at "float32") and every
+             SMPL skinning call (always off), frames/s (CUDA events), kp_3d
+             MPJPE against the float32 path, the joints' spread over
+             frames, and qualified or not against 0.5 mm; (b) MAX-GRNet at
+             "high", bucket 256, 200 frames, against its float32 path;
+             (c) `demo --precision high`, `api.load_pipeline(precision=
+             "high")`, `batch_generation --precision high` (every clip
+             against a runner at "high") and `cli.serve export --precision
+             high` (two programs a bucket: TF32 on for the trunk, off for
+             SMPL, seen at the kernels' calls inside them) run through
+             `serve.load_runner`, each within 1e-4 m of the runner at
+             "high" on the same inputs
 Two lines before the last list every kernel as JSON: launches_by_path
 holds the launches of each main path, phase 6's `--smooth` demo
 ("demo_smooth"), phase 8's two-pass `analyze_video` ("api_gait"), phase
@@ -157,9 +174,14 @@ the folder ("batchgen"), phase 11's `cli.serve run` ("serve_run"),
 phase 12's HMR forward ("hmr"), phase 13's first `cli.train` run
 ("train") and gait trainer ("train_gait"), and phase 14's `demo
 --parallel dp` ("parallel_dp") and `--parallel pp` ("parallel_pp") and
-its data-parallel train steps ("train_dp"), each counted from 0 just
-before its run; launches is their sum; max_abs_err is the largest over
-phases 2, 6, 8, 10, 11, 12, 13 (13's backwards included) and 14; fwd_bwd_ms
+its data-parallel train steps ("train_dp"), and phase 15's mode runs
+("precision_float32", "_high", "_default", "_bf16"), MAX-GRNet at
+"high" ("precision_gait_high") and entry points ("demo_high",
+"api_high", "batchgen_high", "serve_high"), each counted from 0 just
+before its run; B1's bf16 instantiation is a row of its own
+("keypoint_attention_bf16", phase 15's paths), and B1's row counts its
+float32 launches; launches is their sum; max_abs_err is the largest over
+phases 2, 6, 8, 10, 11, 12, 13 (13's backwards included), 14 and 15; fwd_bwd_ms
 holds phase 13's forward + backward timings. Kernel calls are seen at the ops' CUDA implementations, so
 calls from inside a loaded torch.export program are counted and checked
 too. The line before the last holds the card's name and power limit, and the
@@ -185,6 +207,7 @@ import time
 H100_BYTES_PER_S = 3.35e12   # HBM3
 H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores
 H100_TF32_FLOP_PER_S = 495e12  # TF32 tensor cores, dense
+H100_BF16_FLOP_PER_S = 989e12  # bf16 tensor cores, dense
 SEED = 0
 CLIP_W, CLIP_H, CLIP_FRAMES = 320, 240, 160
 TRACKS = ((0, 150), (100, 160))  # [start, end) frames of the two tracks
@@ -271,6 +294,18 @@ PAR_TRAIN_STEPS = 3
 # its head within TRAIN_CPU_RTOL x max(1, max|.|)
 PAR_M_ATOL = 1e-4
 PAR_LOSS_RTOL = 1e-4
+# phase 15: the runner's modes (tag, GRNetRunner kwargs), each at bucket
+# PREC_BATCH on walk.mp4's crops; MPJPE against the float32 path within
+# gaitlab's budget makes a mode qualified (it runs either way)
+PREC_MODES = (("float32", {}), ("high", {"precision": "high"}),
+              ("default", {"precision": "default"}),
+              ("bf16", {"precision": "high", "trunk_dtype": "bfloat16"}))
+PREC_BATCH = 128
+PREC_GAIT_BUCKET, PREC_GAIT_FRAMES = 256, 200  # a padded tail
+MPJPE_BUDGET_MM = 0.5
+# an entry point at "high" against the runner at "high" on the same inputs:
+# the same ops, metres
+ENTRY_ATOL = 1e-4
 
 
 def log(*a):
@@ -433,6 +468,84 @@ def check_keypoint_attention(gen, flush) -> dict:
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, flush))
 
 
+def check_keypoint_attention_bf16(gen, flush) -> dict:
+    """B1 on bf16 inputs (the head of a bf16 trunk) against its plain
+    version, which upcasts; at B = 128 its time beside the FP32 kernel on
+    the same values, the bound of its bf16 bytes and one
+    scaled_dot_product_attention in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaitlab_torch.ops.keypoint_attention import (
+        keypoint_attention_fused, keypoint_attention_plain)
+
+    H = W = 56
+    C1, C2, J = 128, 64, 24
+    err = 0.0
+    for b in CHECK_BATCHES:
+        bf = torch.bfloat16
+        f = torch.randn(b, C1, H, W, device="cuda", generator=gen).relu().to(bf)
+        c = torch.randn(b, C2, H, W, device="cuda", generator=gen).to(bf)
+        hm = (torch.randn(b, J + 1, H, W, device="cuda", generator=gen)
+              * 3).to(bf)
+        args = (f.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1),
+                hm[:, 1:].permute(0, 2, 3, 1))
+        got, ref = keypoint_attention_fused(*args), keypoint_attention_plain(*args)
+        ref64 = keypoint_attention_plain(*(a.double() for a in args))
+        torch.cuda.synchronize()
+
+        def max_err(xs, ys):
+            return max((x - y).abs().max().item() for x, y in zip(xs, ys))
+
+        e = max_err(got, ref)
+        log(f"[kernels] keypoint_attention bf16 B={b}: outputs "
+            f"{got[0].dtype}, max_abs_err={e:.3e} against the plain version "
+            f"on the upcast inputs (tolerance {B1_ATOL:g}); against float64: "
+            f"kernel {max_err(got, ref64):.3e}, plain {max_err(ref, ref64):.3e}")
+        if not (e <= B1_ATOL and got[0].dtype == torch.float32):
+            raise AssertionError(f"keypoint_attention on bf16 disagrees with "
+                                 f"its plain version: {e} > {B1_ATOL}")
+        err = max(err, e)
+    f32 = tuple(a.float() for a in args)  # the same values, FP32 kernel
+    q = torch.eye(J, device="cuda", dtype=torch.bfloat16).expand(
+        LOOP_BATCH, 1, J, J).contiguous()
+    k = hm[:, 1:].reshape(LOOP_BATCH, 1, J, H * W).transpose(2, 3).contiguous()
+    v = torch.cat([f, c], 1).reshape(LOOP_BATCH, 1, C1 + C2, H * W
+                                     ).transpose(2, 3).contiguous()
+
+    def library():  # bf16 outputs: the same function up to their rounding
+        return F.scaled_dot_product_attention(q, k, v, scale=1.0)
+
+    if not torch.allclose(library()[:, 0].float(), torch.cat(ref, -1),
+                          atol=2e-2, rtol=1e-2):
+        raise AssertionError("the library yardstick computes another function")
+    hw = H * W
+    nbytes = (2 * LOOP_BATCH * hw * (J + C1 + C2)
+              + 4 * LOOP_BATCH * J * (C1 + C2))
+    flops = LOOP_BATCH * J * hw * (2 * (C1 + C2) + 5)
+    # the operations priced at the inputs' type, bf16: the features are
+    # exact in bf16, and FP32 weights split in bf16 parts keep the
+    # products exact, so the tensor cores' rate applies (this kernel's
+    # FP32 FFMA would take flops / H100_FP32_FLOP_PER_S)
+    b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOP_PER_S)
+    ffma_ms = flops / H100_FP32_FLOP_PER_S * 1e3
+    fp32_ms = time_ms(lambda: keypoint_attention_fused(*f32), flush)
+    row = dict(
+        name="keypoint_attention_bf16", route="cuda",
+        source="gaitlab_torch/csrc/keypoint_attention.cu",
+        replaces="gaitlab/ops/attention_pallas.py:60",
+        max_abs_err=err,
+        ms=time_ms(lambda: keypoint_attention_fused(*args), flush),
+        plain_ms=time_ms(lambda: keypoint_attention_plain(*args), flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, flush))
+    log(f"[kernels] keypoint_attention bf16 at B={LOOP_BATCH}: "
+        f"{row['ms']:.4f} ms against its bound {b_ms:.4f} ms ({b_by}, "
+        f"{nbytes / 1e6:.1f} MB; its FP32 FFMA alone would take "
+        f"{ffma_ms:.4f} ms); the FP32 kernel on the same values "
+        f"{fp32_ms:.4f} ms")
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -519,6 +632,7 @@ def zeroed_counts():
            "keypoint_attention": keypoint_attention_fused}
     for fn in fns.values():
         fn.launches = fn.backwards = 0
+    keypoint_attention_fused.launches_bf16 = 0
     return fns
 
 
@@ -662,15 +776,11 @@ def card_vs_cpu(model, crops) -> None:
     host = cpu.forward(x.cpu())[0]
     errs = {k: (card[k].cpu() - host[k]).abs().max().item()
             for k in ("kp_3d", "verts")}
-    # the same frames with TF32 on, to show what the check would catch
-    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        with torch.inference_mode():
-            tf32 = vp_regress(model.smpl, model.module(
-                x.permute(0, 3, 1, 2).contiguous()))[0]
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    # the same frames with TF32 on (the trunk at precision "default": one
+    # TF32 pass), to show what the check would catch
+    with torch.inference_mode():
+        tf32 = vp_regress(model.smpl, model.module.with_precision("default")(
+            x.permute(0, 3, 1, 2).contiguous()))[0]
     tf32_err = (tf32["kp_3d"].cpu() - host["kp_3d"]).abs().max().item()
     log(f"[cpu] card vs CPU on {CPU_FRAMES} frames: max abs kp_3d "
         f"{errs['kp_3d']:.3e} m, verts {errs['verts']:.3e} m (tolerance "
@@ -905,15 +1015,18 @@ def kernel_spies(check: bool):
     (ops/*.py::_launch), which eager code and loaded torch.export programs
     alike reach through torch.ops.gaitlab.*, to record the input shapes of
     every call on the card. With `check`, each call's result is
-    also held against the plain version on the same inputs, and the first
+    also held against the plain version on the same inputs (in float64,
+    rounded to float32, for a call inside a TF32 segment), and the first
     smooth_pose call's arguments and result are kept. Yields
     {"calls": {kernel: [(shapes, errors or None)]}, "smooth": ...}, where
     errors holds the largest |kernel - plain|, the largest |plain|, and
     kernel's and plain's largest error against the plain version in
-    float64, and "streams": {kernel: [the CUDA stream of each call]}."""
+    float64, "streams": {kernel: [the CUDA stream of each call]} and
+    "switches": {kernel: [the (cuDNN, cuBLAS) TF32 switches at each
+    call]}."""
     import torch
 
-    from gaitlab_torch.device import float32_math
+    from gaitlab_torch.device import float32_math, held_math_mode
     from gaitlab_torch.ops import blendshapes as b2
     from gaitlab_torch.ops import keypoint_attention as b1
     from gaitlab_torch.pipeline import smoothing
@@ -922,21 +1035,32 @@ def kernel_spies(check: bool):
                                     b1.keypoint_attention_plain),
              "blendshapes": (b2, "_launch", b2.blendshapes_plain)}
     seen = {"calls": {name: [] for name in sites}, "smooth": None,
-            "streams": {name: [] for name in sites}}
+            "streams": {name: [] for name in sites},
+            "switches": {name: [] for name in sites}}
     originals = {name: getattr(owner, attr)
                  for name, (owner, attr, _) in sites.items()}
     smooth_pose = smoothing.smooth_pose
 
     def spy(name, fn, plain):
         def wrapper(*args):
+            switches = (torch.backends.cudnn.allow_tf32,
+                        torch.backends.cuda.matmul.allow_tf32)
             out = fn(*args)
             if args[0].device.type != "cuda":
                 return out
+            seen["switches"][name].append(switches)
             err = None
-            if check:
+            if check and held_math_mode():
+                # inside a TF32 segment, which no call may leave: the plain
+                # version in float64 (no TF32 there), rounded to float32
+                ref64 = plain(*(a.double() for a in args))
+                ref = (tuple(r.float() for r in ref64)
+                       if isinstance(ref64, tuple) else ref64.float())
+            elif check:
                 with float32_math():
                     ref = plain(*args)
                     ref64 = plain(*(a.double() for a in args))
+            if check:
 
                 def max_err(xs, ys):
                     xs = xs if isinstance(xs, tuple) else (xs,)
@@ -1231,16 +1355,11 @@ def gait_card_vs_cpu(model, crops, bbox, cimg) -> None:
                                 model.module.state_dict().items()})
     card = model.forward(x, bbox=bb, cimg=ci, n_valid=n)[0]
     host = cpu.forward(x.cpu(), bbox=bb, cimg=ci, n_valid=n)[0]
-    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        with torch.inference_mode():
-            tf32 = vp_regress(model.smpl, model.module(
-                x.permute(0, 3, 1, 2).contiguous(),
-                bbox=torch.from_numpy(bb).cuda(),
-                cimg=torch.from_numpy(ci).cuda(), n_valid=n))[0]
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    with torch.inference_mode():  # TF32 on: the trunk at "default"
+        tf32 = vp_regress(model.smpl, model.module.with_precision("default")(
+            x.permute(0, 3, 1, 2).contiguous(),
+            bbox=torch.from_numpy(bb).cuda(),
+            cimg=torch.from_numpy(ci).cuda(), n_valid=n))[0]
     for k in ("pred_avg", "pred_phase", "kp_3d", "verts"):
         want = host[k]
         err = (card[k].cpu() - want).abs().max().item()
@@ -2212,8 +2331,10 @@ def check_programs(art: str, manifest: dict, loaded: list) -> None:
     its size, an empty state_dict, one node of each kernel's op."""
     sizes = {}
     for sm in loaded:
-        for b, ep in sm.exported.items():
-            fname = manifest["files"][str(b)][sm.device.type]
+        for b, eps in sm.exported.items():
+            # float32: one program a bucket, TF32 off throughout
+            (fname,) = manifest["files"][str(b)][sm.device.type]
+            (ep,) = eps
             targets = [str(n.target) for n in ep.graph.nodes
                        if n.op == "call_function"]
             ops = {t: targets.count(t) for t in SERVE_OPS}
@@ -3294,6 +3415,333 @@ def parallel_phase(vid: str, trackfile: str, ckpt: str, workdir: str
             {k: max(e[k] for e in errs) for k in errs[0]})
 
 
+# ---------------------------------------------------------------------------
+# phase 15: precision modes
+# ---------------------------------------------------------------------------
+
+def launch_counts(fns: dict) -> dict:
+    """{kernel: launches} of zeroed_counts()'s wrappers, with B1's launches
+    on bf16 inputs apart as "keypoint_attention_bf16"."""
+    b1 = fns["keypoint_attention"]
+    return {"blendshapes": fns["blendshapes"].launches,
+            "keypoint_attention": b1.launches - b1.launches_bf16,
+            "keypoint_attention_bf16": b1.launches_bf16}
+
+
+def held(tag: str, seen: dict, counts: dict) -> dict:
+    """hold_calls on a run's own calls (B1's on either dtype together)."""
+    return hold_calls(tag, seen["calls"], seen["calls"], {
+        "blendshapes": counts["blendshapes"],
+        "keypoint_attention": counts["keypoint_attention"]
+        + counts["keypoint_attention_bf16"]})
+
+
+@contextlib.contextmanager
+def tf32_spies():
+    """Record, inside every convolution of the port's layers, its segment's
+    split mode and the cuDNN and cuBLAS TF32 switches, and the switches
+    inside every SMPL skinning call (body/smpl.py::lbs)."""
+    import torch
+
+    from gaitlab_torch.body import smpl as body_smpl
+    from gaitlab_torch.nn import layers
+
+    seen = {"conv": set(), "smpl": set()}
+    conv, lbs = layers.Conv2d.forward, body_smpl.lbs
+
+    def switches():
+        return (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
+    def conv_spy(self, x):
+        seen["conv"].add((layers._CONV_MODE.get(), *switches()))
+        return conv(self, x)
+
+    def lbs_spy(*a, **kw):
+        seen["smpl"].add(switches())
+        return lbs(*a, **kw)
+
+    layers.Conv2d.forward, body_smpl.lbs = conv_spy, lbs_spy
+    try:
+        yield seen
+    finally:
+        layers.Conv2d.forward, body_smpl.lbs = conv, lbs
+
+
+def check_switches(tag: str, seen: dict) -> None:
+    """A convolution under a TF32 mode ran with both switches on, one at
+    "float32" with both off; SMPL always with both off."""
+    bad = [c for c in seen["conv"]
+           if c[1:] != ((c[0] not in (None, "float32")),) * 2]
+    log(f"[precision] {tag}: (conv mode, cuDNN TF32, cuBLAS TF32) seen "
+        f"{sorted(seen['conv'], key=str)}; SMPL (cuDNN, cuBLAS) "
+        f"{sorted(seen['smpl'])}")
+    if bad or seen["smpl"] != {(False, False)} or not seen["conv"]:
+        raise AssertionError(f"{tag}: TF32 switches wrong in {bad} or SMPL "
+                             f"ran with {seen['smpl']}")
+
+
+def joint_stats(kp, ref) -> tuple:
+    """(MPJPE mean over frames and joints, worst frame's MPJPE, the
+    reference's joint spread over frames), mm."""
+    import numpy as np
+
+    per_frame = np.linalg.norm(kp - ref, axis=-1).mean(-1) * 1e3
+    spread = np.linalg.norm(ref - ref.mean(0), axis=-1).mean() * 1e3
+    return float(per_frame.mean()), float(per_frame.max()), float(spread)
+
+
+def precision_modes(model, crops) -> tuple[dict, dict, dict]:
+    """Each mode at bucket PREC_BATCH on walk.mp4's crops: its launches
+    (the mode's forward is its main path), every kernel call held, the
+    switches, frames/s (CUDA events) and MPJPE against the float32 path."""
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    launches, errs, stats = {}, [], {}
+    ref = None
+    for tag, kw in PREC_MODES:
+        runner = GRNetRunner(model, buckets=(PREC_BATCH,), **kw)
+        with kernel_spies(check=True) as seen, tf32_spies() as sw:
+            fns = zeroed_counts()
+            out = runner.forward_crops(crops)
+            launches[f"precision_{tag}"] = counts = launch_counts(fns)
+        errs.append(held(f"precision {tag}", seen, counts))
+        check_switches(tag, sw)
+        live = runner._live()["model"]
+        ms = events_ms(lambda: live.forward(crops))
+        kp = out["kp_3d"]
+        if ref is None:
+            ref = kp
+        mpjpe, worst, spread = joint_stats(kp, ref)
+        stats[tag] = dict(ms=ms, fps=PREC_BATCH / ms * 1e3, mpjpe=mpjpe,
+                          worst=worst, spread=spread)
+        log(f"[precision] {tag} ({kw}): head "
+            f"{runner.resolved_head_precision()}, regions "
+            f"{runner.resolved_region_precision()}; {ms:.2f} ms/batch of "
+            f"{PREC_BATCH} = {PREC_BATCH / ms * 1e3:.1f} frames/s; kp_3d "
+            f"MPJPE against float32 {mpjpe:.4f} mm (worst frame "
+            f"{worst:.4f} mm), joint spread over frames {spread:.2f} mm: "
+            + ("qualified" if mpjpe <= MPJPE_BUDGET_MM else "unqualified")
+            + f" against {MPJPE_BUDGET_MM} mm; launches {counts}")
+    # the host cost of the weights check, which each session (a track, a
+    # forward_crops call) makes once when it opens
+    n_tensors = (len(list(model.module.parameters()))
+                 + len(list(model.module.buffers())))
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        runner._weights_state()
+        host.append((time.perf_counter() - t0) * 1e3)
+    log(f"[precision] the weights check over {n_tensors} trunk tensors and "
+        f"SMPL's: {statistics.median(host):.3f} ms host (median of 20), "
+        f"once per session")
+    return launches, {k: max(e[k] for e in errs) for k in errs[0]}, stats
+
+
+def precision_gait(ckpt: str, workdir: str, trackfile: str) -> tuple:
+    """MAX-GRNet under "high" at bucket PREC_GAIT_BUCKET on
+    PREC_GAIT_FRAMES frames (a padded tail) against its float32 path."""
+    import numpy as np
+    import torch
+
+    from gaitlab_torch.cli.demo import build_model
+    from gaitlab_torch.device import upload
+    from gaitlab_torch.pipeline.crop import normalize_image
+    from gaitlab_torch.pipeline.runner import GRNetRunner, _pad_rows
+
+    model = build_model(ckpt, use_gait_feat=True)
+    frames, bbox, cimg = gait_track(workdir, trackfile)
+    n, b = PREC_GAIT_FRAMES, PREC_GAIT_BUCKET
+    f32 = GRNetRunner(model, buckets=(b,))
+    crops = normalize_image(upload(f32._host_crop(
+        frames[:n], bbox[:n], f32.bbox_scale), model.device))
+    outs, stats, errs = {}, {}, []
+    for tag, kw in (("float32", {}), ("high", {"precision": "high"})):
+        runner = GRNetRunner(model, buckets=(b,), **kw)
+        with kernel_spies(check=True) as seen, tf32_spies() as sw:
+            fns = zeroed_counts()
+            outs[tag] = runner.forward_crops(crops, bbox=bbox[:n],
+                                             cimg=cimg[:n])
+            counts = launch_counts(fns)
+        errs.append(held(f"precision gait {tag}", seen, counts))
+        check_switches(f"gait {tag}", sw)
+        live = runner._live()["model"]
+        x = _pad_rows(crops, b)
+        bb, ci = (_pad_rows(torch.from_numpy(a[:n]), b) for a in (bbox, cimg))
+        stats[tag] = events_ms(lambda: live.forward(x, bbox=bb, cimg=ci,
+                                                    n_valid=n))
+    mpjpe, worst, spread = joint_stats(outs["high"]["kp_3d"],
+                                       outs["float32"]["kp_3d"])
+    d_avg = float(np.abs(outs["high"]["pred_avg"]
+                         - outs["float32"]["pred_avg"]).max())
+    log(f"[precision] MAX-GRNet at bucket {b} ({n} frames): float32 "
+        f"{stats['float32']:.2f} ms = {b / stats['float32'] * 1e3:.1f} "
+        f"frames/s, high {stats['high']:.2f} ms = "
+        f"{b / stats['high'] * 1e3:.1f} frames/s; kp_3d MPJPE against "
+        f"float32 {mpjpe:.4f} mm (worst frame {worst:.4f} mm, spread "
+        f"{spread:.2f} mm), pred_avg max abs {d_avg:.3e}: "
+        + ("qualified" if mpjpe <= MPJPE_BUDGET_MM else "unqualified")
+        + f"; launches {counts}")
+    return counts, {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+def entry_hold(tag: str, got: dict, want: dict) -> None:
+    """An entry point's per-track outputs against the runner's "high"
+    ones, within ENTRY_ATOL metres."""
+    import numpy as np
+
+    for pid in want:
+        for k in ("verts", "joints3d"):
+            g, w = np.asarray(got[pid][k]), np.asarray(want[pid][k])
+            err = float(np.abs(g - w).max())
+            if not (g.shape == w.shape and err <= ENTRY_ATOL):
+                raise AssertionError(f"{tag} person {pid} {k}: {g.shape} "
+                                     f"{w.shape}, max abs {err:.3e}")
+    log(f"[precision] {tag}: persons {sorted(want)} within {ENTRY_ATOL:g} m "
+        f"of the runner at high")
+
+
+def precision_entries(vid: str, trackfile: str, ckpt: str, workdir: str
+                      ) -> tuple[dict, dict]:
+    """demo, api, batch_generation and serve with precision "high", each
+    held against GRNetRunner(precision="high") on the same inputs."""
+    import numpy as np
+
+    from gaitlab_torch import api, serve
+    from gaitlab_torch.cli import batch_generation as bg
+    from gaitlab_torch.cli import serve as serve_cli
+    from gaitlab_torch.cli.demo import build_model, load_pickle
+    from gaitlab_torch.pipeline import video
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    model = build_model(ckpt)
+    paths = video.list_image_files(osp.join(workdir, "calib"))
+    tracks = {pid: ([paths[i] for i in t["frames"]],
+                    np.asarray(t["bbox"], np.float32))
+              for pid, t in load_pickle(trackfile).items()}
+    high = GRNetRunner(model, precision="high")
+    want = {pid: high.run_track(*t) for pid, t in tracks.items()}
+    launches, errs = {}, []
+
+    fns = zeroed_counts()
+    with kernel_spies(check=True) as seen:
+        saved, counts, wall = drive_demo(
+            ["--vid_file", vid, "--tracking_path", trackfile, "--ckpt", ckpt,
+             "--precision", "high"], osp.join(workdir, "out_high"),
+            "walk_mp4")
+        launches["demo_high"] = counts = launch_counts(fns)
+    errs.append(held("demo --precision high", seen, counts))
+    entry_hold(f"demo --precision high ({wall:.2f} s)", saved, want)
+
+    with kernel_spies(check=True) as seen:
+        _, runner = api.load_pipeline(ckpt=ckpt, precision="high")
+        fns = zeroed_counts()
+        got = {pid: runner.run_track(*t) for pid, t in tracks.items()}
+        launches["api_high"] = counts = launch_counts(fns)
+    errs.append(held("api.load_pipeline(precision='high')", seen, counts))
+    entry_hold("api.load_pipeline(precision='high')", got, want)
+
+    ref = GRNetRunner(model, precision="high", fetch=("kp_3d",))
+    seen_clips, ref_counts = [], []
+    run_grnet = bg.run_grnet_on_frames
+
+    def held_clip(runner, source, bboxes):
+        out = run_grnet(runner, source, bboxes)
+        before = launch_counts(fns)
+        want = run_grnet(ref, source, bboxes)
+        ref_counts.append({k: v - before[k]
+                           for k, v in launch_counts(fns).items()})
+        err = float(np.abs(out - want).max())
+        seen_clips.append((len(bboxes), runner.precision, err))
+        return out
+
+    out = osp.join(workdir, "bg_out", "high.json")
+    bg.run_grnet_on_frames = held_clip
+    try:
+        with kernel_spies(check=True) as seen:
+            fns = zeroed_counts()
+            bg.main(bg.build_parser().parse_args(
+                ["--vid_folder", osp.join(workdir, "bg_vids"), "--bbox_path",
+                 osp.join(workdir, "bg_bbox.json"), "--pretrained_file", ckpt,
+                 "--outpath", out, "--precision", "high"]))
+            counts = launch_counts(fns)
+    finally:
+        bg.run_grnet_on_frames = run_grnet
+    # the calls seen include the reference runner's, which are held too;
+    # the path's launches are the rest
+    errs.append(held("batch_generation --precision high", seen, counts))
+    launches["batchgen_high"] = {k: v - sum(c[k] for c in ref_counts)
+                                 for k, v in counts.items()}
+    log(f"[precision] batch_generation --precision high: clips (frames, "
+        f"precision, max abs kp_3d against the runner) {seen_clips}")
+    if not seen_clips or any(p != "high" or not e <= ENTRY_ATOL
+                             for _, p, e in seen_clips):
+        raise AssertionError(f"batch_generation at high: {seen_clips}")
+
+    art = osp.join(workdir, "serve_high")
+    t0 = time.perf_counter()
+    serve_cli.main_cli(["export", "--artifacts", art, "--ckpt", ckpt,
+                        "--buckets", str(PREC_BATCH), "--platforms", "cuda",
+                        "--precision", "high"])
+    export_s = time.perf_counter() - t0
+    srunner = serve.load_runner(art)
+    man = srunner.serving.manifest
+    log(f"[precision] serve export --precision high: {export_s:.2f} s; "
+        f"files {man['files']}, tf32 {man['tf32']}, head "
+        f"{man['head_precision']}, regions {man['region_precision']}")
+    if man["tf32"] != [True, False] or man["head_precision"] != "default":
+        raise AssertionError(f"serve manifest at high: {man}")
+    live = GRNetRunner(model, precision="high", crop_on="host",
+                       buckets=(PREC_BATCH,))
+    live_out = {pid: live.run_track(*t) for pid, t in tracks.items()}
+    with kernel_spies(check=True) as seen, no_model_code():
+        fns = zeroed_counts()
+        got = {pid: srunner.run_track(*t) for pid, t in tracks.items()}
+        launches["serve_high"] = counts = launch_counts(fns)
+    errs.append(held("serve run at high", seen, counts))
+    # inside a program only the kernels' calls are seen: B1 in the trunk's
+    # part, B2 in SMPL's
+    switches = {k: sorted(set(v)) for k, v in seen["switches"].items()}
+    log(f"[precision] serve run at high: (cuDNN, cuBLAS) TF32 at each "
+        f"kernel's calls {switches}")
+    if switches != {"keypoint_attention": [(True, True)],
+                    "blendshapes": [(False, False)]}:
+        raise AssertionError(f"pinned parts ran with TF32 {switches}")
+    entry_hold("serve (pinned programs) at high", got, live_out)
+    return launches, {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+def precision_phase(vid: str, trackfile: str, ckpt: str, workdir: str
+                    ) -> tuple[dict, dict]:
+    """Phase 15. Returns the launches of each of its paths and each
+    kernel's largest checked error."""
+    import numpy as np
+    import torch
+
+    from gaitlab_torch.cli.demo import build_model, load_pickle
+    from gaitlab_torch.pipeline import video
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    t0 = time.perf_counter()
+    model = build_model(ckpt)
+    paths = video.list_image_files(osp.join(workdir, "calib"))
+    track = load_pickle(trackfile)[0]
+    crops = GRNetRunner(model).crop_track(
+        [paths[i] for i in track["frames"][:PREC_BATCH]],
+        np.asarray(track["bbox"][:PREC_BATCH], np.float32))
+    launches, errs, _ = precision_modes(model, crops)
+    del model, crops
+    torch.cuda.empty_cache()
+    launches["precision_gait_high"], gait_errs = precision_gait(
+        ckpt, workdir, trackfile)
+    torch.cuda.empty_cache()
+    more, entry_errs = precision_entries(vid, trackfile, ckpt, workdir)
+    launches.update(more)
+    log(f"[precision] phase 15 took {time.perf_counter() - t0:.1f} s")
+    return launches, {k: max(v, gait_errs[k], entry_errs[k])
+                      for k, v in errs.items()}
+
+
 def main() -> int:
     import torch
 
@@ -3324,7 +3772,8 @@ def main() -> int:
 
     with float32_math():
         rows = [check_keypoint_attention(gen, flush),
-                check_blendshapes(gen, flush)]
+                check_blendshapes(gen, flush),
+                check_keypoint_attention_bf16(gen, flush)]
     del flush
     for r in rows:
         log(f"[kernels] {r['name']} at B={LOOP_BATCH}: {r['ms']:.4f} ms, "
@@ -3354,20 +3803,35 @@ def main() -> int:
             train_phase(ckpt, workdir, trackfile)
         dp_launches, pp_launches, train_dp_launches, par_errs = \
             parallel_phase(vid, trackfile, ckpt, workdir)
+        prec_launches, prec_errs = precision_phase(vid, trackfile, ckpt,
+                                                   workdir)
     paths = {"demo_smooth": launches, "api_gait": gait_launches,
              "demo_render": render_launches, "batchgen": bg_launches,
              "serve_run": serve_launches, "hmr": hmr_launches,
              "train": train_launches, "train_gait": train_gait_launches,
              "parallel_dp": dp_launches, "parallel_pp": pp_launches,
-             "train_dp": train_dp_launches}
+             "train_dp": train_dp_launches, **prec_launches}
     for r in rows:
-        r["launches_by_path"] = {p: n[r["name"]] for p, n in paths.items()}
+        name = r["name"]
+        if name == "keypoint_attention_bf16":
+            # B1's bf16 instantiation runs only on phase 15's paths; its
+            # calls are held with B1's there
+            r["launches_by_path"] = {p: n[name]
+                                     for p, n in prec_launches.items()}
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   prec_errs["keypoint_attention"])
+            r["fwd_bwd_ms"] = None
+        else:
+            r["launches_by_path"] = {p: n[name] for p, n in paths.items()}
+            r["max_abs_err"] = max(r["max_abs_err"], path_errs[name],
+                                   gait_errs[name], bg_errs[name],
+                                   serve_errs[name], hmr_errs[name],
+                                   train_errs[name], par_errs[name],
+                                   prec_errs[name])
+            r["fwd_bwd_ms"] = bwd_times[name]
         r["launches"] = sum(r["launches_by_path"].values())
-        r["max_abs_err"] = max(r["max_abs_err"], path_errs[r["name"]],
-                               gait_errs[r["name"]], bg_errs[r["name"]],
-                               serve_errs[r["name"]], hmr_errs[r["name"]],
-                               train_errs[r["name"]], par_errs[r["name"]])
-        r["fwd_bwd_ms"] = bwd_times[r["name"]]
+    if not prec_launches["precision_bf16"]["keypoint_attention_bf16"]:
+        raise AssertionError("the bf16 path never launched B1 on bf16")
 
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",

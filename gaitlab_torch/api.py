@@ -24,17 +24,16 @@ def load_pipeline(ckpt: str = "", smpl_model: Optional[str] = None,
                   device=None, mesh=None):
     """(model, runner) ready for repeated video analysis, on `device`
     (None: the card). `mesh` (parallel.make_mesh) splits each bucket over
-    replicas on its data axis. Only precision="float32" (TF32 off) is
-    ported; other precisions raise NotImplementedError, as the runner
-    does. With `use_gait_feat`, a reference checkpoint fills the trunk and
-    the gait corrector keeps its random init (no reference checkpoint
-    carries one)."""
+    replicas on its data axis. `precision` is the runner's: "float32"
+    (TF32 off, the default), "high" or "default" (nn/layers.py says what
+    each means on the card). With `use_gait_feat`, a reference checkpoint
+    fills the trunk and the gait corrector keeps its random init (no
+    reference checkpoint carries one)."""
     from gaitlab_torch.cli.demo import build_model
-    from gaitlab_torch.pipeline.runner import GRNetRunner
+    from gaitlab_torch.pipeline.runner import PRECISIONS, GRNetRunner
 
-    if precision != "float32":  # before building a model
-        raise NotImplementedError(f"precision={precision!r} is not ported "
-                                  "yet; use 'float32'")
+    if precision not in PRECISIONS:  # before building a model
+        raise ValueError(f"precision={precision!r}: use one of {PRECISIONS}")
     model = build_model(ckpt, smpl_model, device=device,
                         use_gait_feat=use_gait_feat)
     return model, GRNetRunner(model, precision=precision, mesh=mesh)

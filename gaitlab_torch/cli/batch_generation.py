@@ -68,8 +68,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode straight from the video (no PNG folder).")
     p.add_argument("--precision", type=str, default=None,
                    choices=["high", "float32", "default"],
-                   help="matmul precision; only float32 (TF32 off) is "
-                        "ported, and it is the default.")
+                   help="matmul precision: float32 (TF32 off) is the "
+                        "default; high and default run TF32 passes "
+                        "(nn/layers.py).")
     p.add_argument("--cpu_only", action="store_true",
                    help="run on the CPU instead of the card.")
     p.add_argument("--crop_size", type=int, default=224,
@@ -189,11 +190,11 @@ def prepare_data(fv: str, vid_folder: str, outpath: str,
     bboxes in the database `fv`; returns the number of shard files."""
     from gaitlab_torch.cli import demo
     from gaitlab_torch.device import resolve_device
-    from gaitlab_torch.pipeline.runner import FrameCountError, GRNetRunner
+    from gaitlab_torch.pipeline.runner import (PRECISIONS, FrameCountError,
+                                               GRNetRunner)
 
-    if precision not in (None, "float32"):
-        raise NotImplementedError(
-            f"not ported to gaitlab_torch yet: --precision {precision}")
+    if precision is not None and precision not in PRECISIONS:
+        raise ValueError(f"--precision {precision}: use one of {PRECISIONS}")
     resolve_device("cpu" if cpu_only else None)  # no card: fail at once
     if not osp.isfile(fv):
         raise FileNotFoundError(f"bbox database not found: {fv}")
@@ -207,7 +208,8 @@ def prepare_data(fv: str, vid_folder: str, outpath: str,
                               cpu_only=cpu_only)
     model = demo.load_model(args, None)
     # the database holds only joints3D: the vertices are not read back
-    runner = GRNetRunner(model, fetch=("kp_3d",), crop_size=crop_size)
+    rkw = {"precision": precision} if precision else {}
+    runner = GRNetRunner(model, fetch=("kp_3d",), crop_size=crop_size, **rkw)
     if not outpath.endswith(".json"):
         outpath = outpath + ".json"
     max_vid = int(os.environ.get("GAITLAB_BG_MAXVID", MAX_VID))

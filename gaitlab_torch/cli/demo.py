@@ -16,8 +16,8 @@ panel, or with --mesh_render the SMPL mesh (--wireframe, --sideview);
 Runs on CUDA unless --cpu_only is given. --parallel dp splits each bucket
 over every visible card, --parallel pp runs the 2-stage pipeline over them
 (it needs two devices); with --cpu_only the device list is the CPU alone.
-The path of gaitlab's demo that is not ported yet raises
-NotImplementedError: --precision other than float32.
+--precision float32 (the default: TF32 off), high or default passes
+through to the runner (nn/layers.py says what each means on the card).
 
 Usage:
   python -m gaitlab_torch.cli.demo --vid_file clip.mp4 \
@@ -102,8 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "--save_vid) it falls back to the folder.")
     p.add_argument("--precision", type=str, default=None,
                    choices=["high", "float32", "default"],
-                   help="matmul precision; only float32 (TF32 off) is "
-                        "ported, and it is the default.")
+                   help="matmul precision: float32 (TF32 off) is the "
+                        "default; high and default run TF32 passes "
+                        "(nn/layers.py).")
     p.add_argument("--parallel", type=str, default=None,
                    choices=["dp", "pp"],
                    help="multi-card strategy: 'dp' splits frame batches "
@@ -111,18 +112,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "pipeline (backbone group | head+SMPL group) over "
                         "them.")
     return p
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError for every flag whose path is not ported."""
-    unported = {
-        f"--precision {args.precision}": args.precision not in (None,
-                                                                "float32"),
-    }
-    missing = [k for k, on in unported.items() if on]
-    if missing:
-        raise NotImplementedError(
-            "not ported to gaitlab_torch yet: " + ", ".join(missing))
 
 
 def check_render_deps(args) -> None:
@@ -297,10 +286,12 @@ def _person_output(out, bboxes, frames, person_id, args, model, orig_width,
 
 def _runner_kwargs(args) -> dict:
     """--grnet_batch_size caps the bucket sizes (450, the default, equals
-    the largest default bucket); --parallel goes through."""
+    the largest default bucket); --parallel and --precision go through."""
     from gaitlab_torch.pipeline.runner import DEFAULT_BUCKETS
 
     kw = {"parallel": args.parallel}
+    if args.precision:
+        kw["precision"] = args.precision
     gbs = int(args.grnet_batch_size or 0)
     if gbs and gbs != 450:
         kw["buckets"] = tuple(sorted(
@@ -432,7 +423,6 @@ def main(args):
     from gaitlab_torch.pipeline import loader, video
     from gaitlab_torch.utils import StageTimer
 
-    check_ported(args)
     check_render_deps(args)
     total_time = time.time()
     timer = StageTimer()

@@ -55,8 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="devices to export programs for (default "
                          "cuda,cpu; each must be present)")
     ex.add_argument("--precision", type=str, default=None,
-                    help="trunk precision (only float32, TF32 off, is "
-                         "ported)")
+                    help="matmul precision: float32 (the default, TF32 "
+                         "off), high or default (TF32 passes; "
+                         "nn/layers.py says what each means on the "
+                         "card)")
     ex.add_argument("--crop_size", type=int, default=224,
                     help="crop resolution; other sizes build a small "
                          "(test/edge) trunk with random weights")
@@ -79,9 +81,6 @@ def main_export(args, device=None) -> int:
     from gaitlab_torch.cli import demo as demo_cli
     from gaitlab_torch.pipeline.runner import GRNetRunner
 
-    if args.precision not in (None, "float32"):
-        raise NotImplementedError(
-            f"precision={args.precision!r} is not ported yet; use 'float32'")
     if args.crop_size == 224:
         model = demo_cli.build_model(args.ckpt, args.smpl_model,
                                      device=device)
@@ -96,6 +95,8 @@ def main_export(args, device=None) -> int:
     kw = {"crop_size": args.crop_size}
     if args.buckets:
         kw["buckets"] = tuple(int(b) for b in args.buckets.split(",") if b)
+    if args.precision:
+        kw["precision"] = args.precision
     runner = GRNetRunner(model, **kw)
     platforms = tuple(p for p in args.platforms.split(",") if p)
     t0 = time.time()
@@ -105,6 +106,8 @@ def main_export(args, device=None) -> int:
     print(f"Exported {n} bucket programs + weights to {args.artifacts} "
           f"in {time.time() - t0:.1f}s "
           f"(precision={manifest['precision']}, "
+          f"head={manifest['head_precision']}, "
+          f"trunk_dtype={manifest['trunk_dtype']}, "
           f"platforms={manifest['platforms']})")
     return 0
 
@@ -123,7 +126,9 @@ def main_run(args, device=None) -> int:
     runner = serve.load_runner(args.artifacts, device=device)
     print(f"Loaded {len(runner.buckets)} pinned programs "
           f"(buckets {list(runner.buckets)}, "
-          f"precision={runner.precision}) from {args.artifacts} in "
+          f"precision={runner.precision}, "
+          f"head={runner.resolved_head_precision()}, "
+          f"trunk_dtype={runner.trunk_dtype}) from {args.artifacts} in "
           f"{time.time() - t0:.1f}s")
 
     detector = detect.get_detector(args.detector, device=runner.model.device)

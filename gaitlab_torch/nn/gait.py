@@ -25,6 +25,13 @@ as in Flax. Outputs at padded frames are zeros here (Flax leaves them
 non-zero), and nothing downstream reads them: the runner slices them off
 and temporal attention masks them as keys. The same code runs eagerly and
 under `torch.export`, and it copies nothing from the host to the card.
+
+Precision modes: the corrector runs in its own segment at the forward's
+global precision (GRNetCore.segments), as under gaitlab's global context;
+its linears and attention products split under "high" (layers.Linear,
+einsum_passes). cuDNN's GRU has no split form, so under "high" (and
+"default") the GRU runs one TF32 pass: that is its H100 meaning, and the
+gait model's qualifying number includes it.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gaitlab_torch.nn.layers import LocallyConnected
+from gaitlab_torch.nn.layers import Linear, LocallyConnected, einsum_passes
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm
 
@@ -132,13 +139,13 @@ class GaitFeatEncoder(nn.Module):
         self.cparam_mlp = LocallyConnected(num_joints, 3, feat_dim)
         self.rnn = BiGRU(num_joints * feat_dim, h_size, num_layers)
         if num_outputs > 0:
-            self.speed_fc = nn.Linear(2 * num_layers * h_size, fc_size)
-            self.speed_out = nn.Linear(fc_size, 1)
-            self.step_fc = nn.Linear(2 * num_layers * h_size, fc_size)
-            self.step_out = nn.Linear(fc_size, 2)
+            self.speed_fc = Linear(2 * num_layers * h_size, fc_size)
+            self.speed_out = Linear(fc_size, 1)
+            self.step_fc = Linear(2 * num_layers * h_size, fc_size)
+            self.step_out = Linear(fc_size, 2)
         if estim_phase:
-            self.phase_fc = nn.Linear(2 * h_size, fc_size)
-            self.phase_out = nn.Linear(fc_size, 4)
+            self.phase_fc = Linear(2 * h_size, fc_size)
+            self.phase_out = Linear(fc_size, 4)
 
     def forward(self, x: torch.Tensor, cparams: torch.Tensor,
                 seq_lengths: Optional[torch.Tensor] = None):
@@ -185,10 +192,10 @@ class MultiHeadAttention(nn.Module):
                  out_features: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.query = nn.Linear(in_features, qkv_features)
-        self.key = nn.Linear(in_features, qkv_features)
-        self.value = nn.Linear(in_features, qkv_features)
-        self.out = nn.Linear(qkv_features, out_features)
+        self.query = Linear(in_features, qkv_features)
+        self.key = Linear(in_features, qkv_features)
+        self.value = Linear(in_features, qkv_features)
+        self.out = Linear(qkv_features, out_features)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -196,11 +203,11 @@ class MultiHeadAttention(nn.Module):
         q, k, v = (proj(x).reshape(b, n, self.num_heads, -1)
                    for proj in (self.query, self.key, self.value))
         q = q / math.sqrt(q.shape[-1])
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        logits = einsum_passes("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
             logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
         weights = torch.softmax(logits, dim=-1)
-        return self.out(torch.einsum("bhqk,bkhd->bqhd", weights, v)
+        return self.out(einsum_passes("bhqk,bkhd->bqhd", weights, v)
                         .reshape(b, n, -1))
 
 
@@ -218,7 +225,7 @@ class TSAttention(nn.Module):
         flat = num_tokens * feat_dim
         self.temporal = MultiHeadAttention(flat, d, flat, num_heads)
         self.spatial = MultiHeadAttention(feat_dim, d, feat_dim, num_heads)
-        self.ts_attn = nn.Linear(2 * flat, 2 * flat)
+        self.ts_attn = Linear(2 * flat, 2 * flat)
 
     def forward(self, x: torch.Tensor,
                 frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -253,8 +260,8 @@ class TSAttnBlock(nn.Module):
             self.jwff1 = LocallyConnected(num_tokens, c, c // 2, bias=True)
             self.jwff2 = LocallyConnected(num_tokens, c // 2, c, bias=True)
         else:
-            self.pwff1 = nn.Linear(c, c // 2)
-            self.pwff2 = nn.Linear(c // 2, c)
+            self.pwff1 = Linear(c, c // 2)
+            self.pwff2 = Linear(c // 2, c)
         self.norm2 = nn.LayerNorm(c, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor,
@@ -286,8 +293,8 @@ class FeatCorrector(nn.Module):
         self.num_layers = num_layers
         self.featnet = GaitFeatEncoder(num_joints, c, num_avg_gfeat,
                                        estim_phase)
-        self.gfeat_fc = nn.Linear(num_avg_gfeat + 4 * estim_phase, c // 2)
-        self.gfeat_token = nn.Linear(c // 2, c)
+        self.gfeat_fc = Linear(num_avg_gfeat + 4 * estim_phase, c // 2)
+        self.gfeat_token = Linear(c // 2, c)
         for i in range(num_layers):
             self.add_module(f"block{i}", TSAttnBlock(
                 h_size, num_heads, use_jwff, num_joints + 1, c))

@@ -16,6 +16,8 @@ with the gait branch also 'pred_avg' (1,3), 'pred_phase' (1,N,4) and
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from dataclasses import dataclass
 from typing import Optional
 
@@ -24,9 +26,10 @@ from torch import nn
 
 from gaitlab_torch.body import smpl as body_smpl
 from gaitlab_torch.core import geometry
-from gaitlab_torch.device import float32_math, resolve_device, upload
+from gaitlab_torch.device import resolve_device, upload
 from gaitlab_torch.nn.gait import FeatCorrector, camera_reparam
-from gaitlab_torch.nn.hrnet import HRNetCfg, PoseHighResolutionNet
+from gaitlab_torch.nn.hrnet import REGIONS, HRNetCfg, PoseHighResolutionNet
+from gaitlab_torch.nn.layers import check_mode, precision_scope
 from gaitlab_torch.nn.pare_head import PareHead
 from gaitlab_torch.pipeline.crop import normalize_image
 
@@ -40,7 +43,16 @@ class GRNetCore(nn.Module):
     As in gaitlab, the backbone's BatchNorms always run on their running
     statistics, whatever `.train()` says, and with `freeze_backbone` the
     backbone runs without autograd: gradients reach the head (and the
-    corrector) only, and the backbone's activations are not kept."""
+    corrector) only, and the backbone's activations are not kept.
+
+    Precision (layers.MODES). The forward is a sequence of precision
+    segments (`segments`): the six backbone regions, then the head (with
+    the gait branch: the head's per-frame part, the corrector, the second
+    prediction), each run in its own layers.precision_scope. `precision`
+    is gaitlab's enclosing matmul precision (float32 here unless
+    `with_precision` says otherwise); `head_precision` (None: inherit),
+    `backbone_region_precision` and `backbone_resize_precision` are
+    gaitlab's GRNetCore fields of the same names."""
 
     def __init__(self, num_joints: int = 24, num_input_features: int = 480,
                  num_features_pare: int = 128, num_features_smpl: int = 64,
@@ -49,24 +61,127 @@ class GRNetCore(nn.Module):
                  featcorr_avg_dim: int = 3, featcorr_estim_phase: bool = True,
                  featcorr_num_layers: int = 1, featcorr_h_size: int = 1024,
                  featcorr_num_heads: int = 4, featcorr_use_jwff: bool = False,
-                 freeze_backbone: bool = True):
+                 freeze_backbone: bool = True,
+                 head_precision: Optional[str] = None,
+                 backbone_region_precision: tuple = (),
+                 backbone_resize_precision: str = "highest"):
         super().__init__()
         self.use_gait_feat = use_gait_feat
         self.freeze_backbone = freeze_backbone
+        self.precision = "float32"
+        self.head_precision = head_precision
         self.backbone = PoseHighResolutionNet(
-            HRNetCfg.w(backbone_width, backbone_modules, backbone_blocks))
+            HRNetCfg.w(backbone_width, backbone_modules, backbone_blocks,
+                       backbone_region_precision, backbone_resize_precision))
         self.head = PareHead(num_joints, num_input_features,
                              num_features_pare, num_features_smpl)
+        if head_precision is not None:
+            self.head.precision = check_mode(head_precision)
         if use_gait_feat:
             self.pfeat_corrector = FeatCorrector(
                 num_joints, num_features_pare, featcorr_avg_dim,
                 featcorr_estim_phase, featcorr_num_layers, featcorr_h_size,
                 featcorr_num_heads, featcorr_use_jwff)
 
+    @property
+    def backbone_region_precision(self) -> tuple:
+        return self.backbone.cfg.region_precision
+
+    @property
+    def backbone_resize_precision(self) -> str:
+        return self.backbone.cfg.resize_precision
+
+    def with_precision(self, precision: str = "float32",
+                       head_precision: Optional[str] = None,
+                       region_precision: tuple = (),
+                       resize_precision: str = "highest") -> "GRNetCore":
+        """This trunk at other modes (gaitlab's module.clone of the same
+        fields, with `precision` the global one): a shallow copy whose
+        backbone and head are shallow copies too, sharing every parameter,
+        buffer and deeper submodule with this one, so that weights loaded
+        into either are the other's."""
+        core = copy.copy(self)
+        core._modules = dict(self._modules)
+        backbone = copy.copy(self.backbone)
+        backbone.cfg = self.backbone.cfg.at_precision(region_precision,
+                                                      resize_precision)
+        backbone.precision = check_mode(precision)
+        head = copy.copy(self.head)
+        head.precision = check_mode(head_precision or precision)
+        core._modules["backbone"], core._modules["head"] = backbone, head
+        core.precision, core.head_precision = precision, head_precision
+        return core
+
     def train(self, mode: bool = True) -> "GRNetCore":
         super().train(mode)
         self.backbone.train(False)  # gaitlab: backbone(images, train=False)
         return self
+
+    def segments(self) -> list:
+        """The forward's precision segments in order, as (name, mode)."""
+        segs = [(r, self.backbone.region_mode(r)) for r in REGIONS]
+        head = self.head.precision
+        if not self.use_gait_feat:
+            return segs + [("head", head)]
+        return segs + [("frame_head", head), ("corrector", self.precision),
+                       ("predict", head)]
+
+    def run_segments(self, carry: dict, names) -> dict:
+        """Run the named segments on a carry dict: {"x": images[, "bbox",
+        "cimg", "n_valid"]} before the first; between the regions "x" is a
+        region's output; after the last, the head's output dict."""
+        modes = dict(self.segments())
+        for name in names:
+            carry = self._segment(name, modes[name], carry)
+        return carry
+
+    def _segment(self, name: str, mode: str, carry: dict) -> dict:
+        if name in REGIONS:
+            grad = (contextlib.nullcontext()
+                    if not (self.freeze_backbone and torch.is_grad_enabled())
+                    else torch.no_grad())
+            with grad:
+                return {**carry, "x": self.backbone.run_region(name,
+                                                               carry["x"])}
+        if name == "head":
+            return self.head(carry["x"])
+        if name == "frame_head":
+            bbox, cimg = carry.get("bbox"), carry.get("cimg")
+            if bbox is None or cimg is None:
+                raise ValueError("the gait branch needs bbox and cimg")
+            feats = self.head.feature_extractor(carry["x"])
+            patt = self.head.predict(feats["point_local_feat"],
+                                     feats["cam_shape_feats"])
+            feats["cparams"] = camera_reparam(
+                _at_least_f32(patt["pred_cam"]), bbox, cimg)
+            if carry.get("n_valid") is not None:
+                feats["n_valid"] = carry["n_valid"]
+            return feats
+        if name == "corrector":
+            n_valid = carry.get("n_valid")
+            cparams = carry["cparams"]
+            dtype = self.pfeat_corrector.gfeat_fc.weight.dtype
+            with precision_scope(mode):
+                corrected, pred_avg, pred_phase = self.pfeat_corrector(
+                    carry["point_local_feat"][None].to(dtype),
+                    cparams[None].to(dtype),
+                    None if n_valid is None
+                    else torch.as_tensor(n_valid).reshape(1))
+            out = {k: v for k, v in carry.items()
+                   if k in ("cam_shape_feats", "pred_segm_mask", "cparams")}
+            out.update(corrected=corrected[0], pred_avg=pred_avg,
+                       pred_phase=pred_phase)
+            return out
+        if name == "predict":
+            out = self.head.predict(carry["corrected"],
+                                    carry["cam_shape_feats"])
+            if "pred_segm_mask" in carry:
+                out["pred_segm_mask"] = carry["pred_segm_mask"]
+            out.update(pred_avg=carry["pred_avg"],
+                       pred_phase=carry["pred_phase"],
+                       pred_cparam=carry["cparams"])
+            return out
+        raise ValueError(f"segment {name!r}")
 
     def forward(self, images: torch.Tensor,
                 bbox: Optional[torch.Tensor] = None,
@@ -77,15 +192,8 @@ class GRNetCore(nn.Module):
         on the device) says how many leading frames are real when the
         runner pads the track to a bucket: padded frames then stay out of
         the gait GRU and attention."""
-        if not self.use_gait_feat:
-            return self.head(self._features(images))
-        return self.track_part(self.frame_part(images, bbox, cimg), n_valid)
-
-    def _features(self, images: torch.Tensor) -> torch.Tensor:
-        if self.freeze_backbone and torch.is_grad_enabled():
-            with torch.no_grad():
-                return self.backbone(images)
-        return self.backbone(images)
+        carry = {"x": images, "bbox": bbox, "cimg": cimg, "n_valid": n_valid}
+        return self.run_segments(carry, [n for n, _ in self.segments()])
 
     def frame_part(self, images: torch.Tensor, bbox: torch.Tensor,
                    cimg: torch.Tensor) -> dict:
@@ -94,28 +202,21 @@ class GRNetCore(nn.Module):
         first prediction and the camera reparametrisation ->
         {"point_local_feat", "cam_shape_feats", "pred_segm_mask",
         "cparams"}, one row per frame."""
-        if bbox is None or cimg is None:
-            raise ValueError("the gait branch needs bbox and cimg")
-        feats = self.head.feature_extractor(self._features(images))
-        patt = self.head.predict(feats["point_local_feat"],
-                                 feats["cam_shape_feats"])
-        feats["cparams"] = camera_reparam(patt["pred_cam"], bbox, cimg)
-        return feats
+        return self.run_segments({"x": images, "bbox": bbox, "cimg": cimg},
+                                 REGIONS + ("frame_head",))
 
     def track_part(self, frames: dict, n_valid=None) -> dict:
         """The gait branch's part over the whole track: the corrector on
         frame_part's rows, then the second prediction."""
-        cparams = frames["cparams"]
-        corrected, pred_avg, pred_phase = self.pfeat_corrector(
-            frames["point_local_feat"][None], cparams[None],
-            None if n_valid is None else torch.as_tensor(n_valid).reshape(1))
-        out = self.head.predict(corrected[0], frames["cam_shape_feats"])
-        if "pred_segm_mask" in frames:
-            out["pred_segm_mask"] = frames["pred_segm_mask"]
-        out["pred_avg"] = pred_avg
-        out["pred_phase"] = pred_phase
-        out["pred_cparam"] = cparams
-        return out
+        return self.run_segments({**frames, "n_valid": n_valid},
+                                 ("corrector", "predict"))
+
+
+def _at_least_f32(v):
+    """A bf16 (trunk_dtype) tensor as float32; anything else as it is."""
+    if torch.is_tensor(v) and v.dtype in (torch.bfloat16, torch.float16):
+        return v.float()
+    return v
 
 
 def vp_regress(smpl_params: body_smpl.SMPLParams, patt_output: dict,
@@ -123,7 +224,18 @@ def vp_regress(smpl_params: body_smpl.SMPLParams, patt_output: dict,
                J_regressor: Optional[torch.Tensor] = None,
                joint_mode: str = "spin2", focal_length: float = 5000.0,
                img_res: int = 224) -> list[dict]:
-    """SMPL regression + output assembly (reference VPRegressor.forward)."""
+    """SMPL regression + output assembly (reference VPRegressor.forward).
+    Always float32 with TF32 off, in its own precision segment, whatever
+    mode the trunk ran at (gaitlab pins SMPL to HIGHEST); a bf16 trunk's
+    outputs are cast to float32 first."""
+    patt_output = {k: _at_least_f32(v) for k, v in patt_output.items()}
+    with precision_scope("float32"):
+        return _vp_regress(smpl_params, patt_output, batch_size, J_regressor,
+                           joint_mode, focal_length, img_res)
+
+
+def _vp_regress(smpl_params, patt_output, batch_size, J_regressor,
+                joint_mode, focal_length, img_res) -> list[dict]:
     pred_rotmat = patt_output["pred_pose"]  # (N,24,3,3)
     n = pred_rotmat.shape[0]
     smpl_out = body_smpl.smpl_head(
@@ -157,6 +269,18 @@ def vp_regress(smpl_params: body_smpl.SMPLParams, patt_output: dict,
 
 
 BUCKET_KEYS = ("theta", "verts", "kp_2d", "kp_3d", "pred_avg", "pred_phase")
+REGRESS = "regress"  # the SMPL regression's segment, after the trunk's
+
+
+class _Segments(nn.Module):
+    """A trunk's run_segments as a module's forward, for functional_call."""
+
+    def __init__(self, core: GRNetCore):
+        super().__init__()
+        self.core = core
+
+    def forward(self, carry: dict, names: list) -> dict:
+        return self.core.run_segments(carry, names)
 
 
 class BucketForward(nn.Module):
@@ -165,25 +289,57 @@ class BucketForward(nn.Module):
     n_valid]) -> per-frame theta (N,85), verts, kp_2d, kp_3d (and the gait
     branch's pred_phase (N,4)), and pred_avg (1,3). With `raw_uint8` the
     crops are uint8 and normalized here. The trunk is held outside the
-    module's parameters, so a `torch.export` of it carries no weights."""
+    module's parameters, so a `torch.export` of it carries no weights.
+
+    `names` limits it to some of the segments (the trunk's `segments`,
+    then REGRESS): a part after the first takes (state, smpl, carry) and
+    hands on a carry dict, and only the part with REGRESS returns the
+    outputs. `parts` cuts the forward where the TF32 switches change: a
+    program records the masks and casts of its segments but not the
+    switches, which the caller sets around each part."""
 
     def __init__(self, core: GRNetCore, joint_mode: str = "spin2",
-                 raw_uint8: bool = True):
+                 raw_uint8: bool = True, names=None):
         super().__init__()
         self.__dict__["core"] = core  # not a submodule: no parameters
         self.joint_mode = joint_mode
         self.raw_uint8 = raw_uint8
+        every = [n for n, _ in core.segments()] + [REGRESS]
+        self.names = every if names is None else list(names)
+        self.first = self.names[0] == every[0]
 
-    def forward(self, state: dict, smpl: body_smpl.SMPLParams,
-                images: torch.Tensor, bbox: Optional[torch.Tensor] = None,
-                cimg: Optional[torch.Tensor] = None,
-                n_valid: Optional[torch.Tensor] = None) -> dict:
-        x = normalize_image(images) if self.raw_uint8 else images
-        kw = (dict(bbox=bbox, cimg=cimg, n_valid=n_valid)
-              if self.core.use_gait_feat else {})
-        patt = torch.func.functional_call(
-            self.core, state, (x.permute(0, 3, 1, 2).contiguous(),), kw)
-        out = vp_regress(smpl, patt, joint_mode=self.joint_mode)[0]
+    def parts(self) -> list:
+        """[(tf32, BucketForward of the segments in a run of one TF32
+        setting)] in order."""
+        modes = dict(self.core.segments(), **{REGRESS: "float32"})
+        runs = []
+        for name in self.names:
+            tf32 = modes[name] != "float32"
+            if runs and runs[-1][0] == tf32:
+                runs[-1][1].append(name)
+            else:
+                runs.append((tf32, [name]))
+        return [(tf32, BucketForward(self.core, self.joint_mode,
+                                     self.raw_uint8, names))
+                for tf32, names in runs]
+
+    def forward(self, state: dict, smpl: body_smpl.SMPLParams, *inputs):
+        if self.first:
+            images, bbox, cimg, n_valid = (tuple(inputs) + (None,) * 3)[:4]
+            x = normalize_image(images) if self.raw_uint8 else images
+            carry = {"x": x.permute(0, 3, 1, 2).contiguous()}
+            if self.core.use_gait_feat:
+                carry.update(bbox=bbox, cimg=cimg, n_valid=n_valid)
+        else:
+            carry = inputs[0]
+        names = [n for n in self.names if n != REGRESS]
+        if names:
+            carry = torch.func.functional_call(
+                _Segments(self.core), {"core." + k: v for k, v in
+                                       state.items()}, (carry, names))
+        if REGRESS not in self.names:
+            return carry
+        out = vp_regress(smpl, carry, joint_mode=self.joint_mode)[0]
         return {k: v if k == "pred_avg" else v[0]
                 for k, v in out.items() if k in BUCKET_KEYS}
 
@@ -219,7 +375,8 @@ class GRNet:
                 bbox=None, cimg=None, n_valid: Optional[int] = None
                 ) -> list[dict]:
         """images: (B,T,3,H,W) or (T,3,H,W) crops, or NHWC (N,H,W,3), on the
-        model's device. Runs in float32 with TF32 off. bbox (N,4) [cx,cy,w,h]
+        model's device, at the trunk's modes (float32 with TF32 off unless
+        the module says otherwise). bbox (N,4) [cx,cy,w,h]
         and cimg (N,2) image centres (arrays or tensors) feed the gait
         branch; n_valid (an int) marks the real frames of a padded track."""
         if images.dim() == 5:  # (B,T,3,H,W)
@@ -239,7 +396,7 @@ class GRNet:
                   if v is not None}
             if n_valid is not None:
                 kw["n_valid"] = upload(torch.tensor(n_valid), self.device)
-        with float32_math(), torch.inference_mode():
+        with torch.inference_mode():
             patt = self.module(x.contiguous(), **kw)
             return vp_regress(self.smpl, patt, batch_size=b,
                               J_regressor=J_regressor,

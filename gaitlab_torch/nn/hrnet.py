@@ -7,16 +7,30 @@ through `upsample_stage_{2,3,4}` (bilinear align-corners upsampling, conv,
 BN, ReLU) and are concatenated onto branch 1, giving (N, 480, 56, 56) for
 a 224 crop. Attribute names and Sequential indices give the reference's
 state_dict keys.
+
+The forward runs as six regions (REGIONS, gaitlab's `_prec` regions),
+each in its own precision segment (layers.precision_scope): the region's
+entry of `cfg.region_precision` or, without one, the backbone's
+`precision`. The backbone computes in its weights' dtype (bf16 under the
+runner's trunk_dtype). `cfg.resize_precision` is gaitlab's precision of
+its two-matmul bilinear resize; the port's resize is ATen's bilinear
+kernel, which does no matmul and computes the same FP32 result at every
+value, so the knob is carried and resolved but changes nothing here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 from torch import nn
 
-from gaitlab_torch.nn.layers import batch_norm, conv
+from gaitlab_torch.nn.layers import (batch_norm, check_mode, conv,
+                                     precision_scope)
+
+REGIONS = ("stem", "layer1", "stage2", "stage3", "stage4", "heads")
+RESIZE_PRECISIONS = ("highest", "high", "default")
 
 
 @dataclass(frozen=True)
@@ -33,10 +47,16 @@ class HRNetCfg:
     stage2: StageCfg = None
     stage3: StageCfg = None
     stage4: StageCfg = None
+    # (region, mode) pairs: a region in REGIONS runs at `mode` (one of
+    # layers.MODES) instead of the backbone's precision
+    region_precision: tuple = ()
+    # gaitlab's resize-matmul precision (module docstring)
+    resize_precision: str = "highest"
 
     @staticmethod
-    def w(width: int = 32, modules: tuple = (1, 4, 3),
-          blocks: int = 4) -> "HRNetCfg":
+    def w(width: int = 32, modules: tuple = (1, 4, 3), blocks: int = 4,
+          region_precision: tuple = (),
+          resize_precision: str = "highest") -> "HRNetCfg":
         """The deployed topology is modules=(1,4,3), blocks=4; smaller
         values keep every branch, transition and fuse path (and so every
         parameter shape family) for cheap test models."""
@@ -47,7 +67,22 @@ class HRNetCfg:
                             (width, width * 2, width * 4)),
             stage4=StageCfg(modules[2], 4, (blocks,) * 4,
                             (width, width * 2, width * 4, width * 8)),
-        )
+        ).at_precision(region_precision, resize_precision)
+
+    def at_precision(self, region_precision: tuple = (),
+                     resize_precision: str = "highest") -> "HRNetCfg":
+        """This topology with other precision fields (checked)."""
+        region_precision = tuple(tuple(rp) for rp in region_precision)
+        for region, mode in region_precision:
+            check_mode(mode)
+            if region not in REGIONS:
+                raise ValueError(f"region_precision region {region!r}: use "
+                                 f"one of {REGIONS}")
+        if resize_precision not in RESIZE_PRECISIONS:
+            raise ValueError(f"resize_precision={resize_precision!r}: use "
+                             f"one of {RESIZE_PRECISIONS}")
+        return dataclasses.replace(self, region_precision=region_precision,
+                                   resize_precision=resize_precision)
 
 
 class BasicBlock(nn.Module):
@@ -197,6 +232,10 @@ class PoseHighResolutionNet(nn.Module):
 
     def __init__(self, cfg: HRNetCfg):
         super().__init__()
+        self.cfg = cfg
+        # the mode of the regions without an entry in cfg.region_precision
+        # (gaitlab's enclosing precision context)
+        self.precision = "float32"
         self.conv1 = conv(3, 64, 3, 2)
         self.bn1 = batch_norm(64)
         self.conv2 = conv(64, 64, 3, 2)
@@ -221,13 +260,36 @@ class PoseHighResolutionNet(nn.Module):
         return [(xs[i] if layer is None else layer(xs[i])) if i < len(xs)
                 else layer(xs[-1]) for i, layer in enumerate(transition)]
 
+    def region_mode(self, name: str) -> str:
+        """The precision mode region `name` runs at."""
+        return dict(self.cfg.region_precision).get(name, self.precision)
+
+    def region(self, name: str, x):
+        """Region `name` of the forward, on the previous region's output
+        (the images for "stem"; a list of branches between the stages)."""
+        if name == "stem":
+            x = self.relu(self.bn1(self.conv1(x.to(self.conv1.weight.dtype))))
+            return self.relu(self.bn2(self.conv2(x)))
+        if name == "layer1":
+            return [self.layer1(x)]
+        if name == "stage2":
+            return self.stage2(self._apply_transition(self.transition1, x))
+        if name == "stage3":
+            return self.stage3(self._apply_transition(self.transition2, x))
+        if name == "stage4":
+            return self.stage4(self._apply_transition(self.transition3, x))
+        if name == "heads":
+            return torch.cat([x[0], self.upsample_stage_2(x[1]),
+                              self.upsample_stage_3(x[2]),
+                              self.upsample_stage_4(x[3])], dim=1)
+        raise ValueError(f"region {name!r}: use one of {REGIONS}")
+
+    def run_region(self, name: str, x):
+        """`region` in its own precision segment, at the region's mode."""
+        with precision_scope(self.region_mode(name)):
+            return self.region(name, x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.relu(self.bn1(self.conv1(x)))
-        x = self.relu(self.bn2(self.conv2(x)))
-        xs = [self.layer1(x)]
-        xs = self.stage2(self._apply_transition(self.transition1, xs))
-        xs = self.stage3(self._apply_transition(self.transition2, xs))
-        xs = self.stage4(self._apply_transition(self.transition3, xs))
-        return torch.cat([xs[0], self.upsample_stage_2(xs[1]),
-                          self.upsample_stage_3(xs[2]),
-                          self.upsample_stage_4(xs[3])], dim=1)
+        for name in REGIONS:
+            x = self.run_region(name, x)
+        return x

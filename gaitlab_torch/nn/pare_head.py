@@ -5,6 +5,12 @@ configuration (part-segmentation heatmaps, one iteration, keypoint
 attention without post-conv). The attention pooling always goes through
 `ops.keypoint_attention_fused` (the CUDA kernel on the card).
 
+The head runs at its `precision` (one precision segment per call of
+feature_extractor or predict; layers.precision_scope): GRNetCore sets it
+from its head_precision or, without one, its global precision. In bf16
+(the runner's trunk_dtype) the pooling takes the bf16 features and
+logits and returns float32, as gaitlab's Pallas wrapper does.
+
 The shape and camera MLPs take the pooled (N, C, J) features flattened
 channel-major, as the reference does, so reference checkpoints load as
 they are (gaitlab flattens token-major and permutes the Dense kernels at
@@ -17,7 +23,8 @@ import torch
 from torch import nn
 
 from gaitlab_torch.core import geometry
-from gaitlab_torch.nn.layers import LocallyConnected2d, batch_norm, conv
+from gaitlab_torch.nn.layers import (Linear, LocallyConnected2d, batch_norm, conv,
+                                     precision_scope)
 from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
 
 
@@ -33,17 +40,22 @@ class PareHead(nn.Module):
                  num_features_pare: int = 128, num_features_smpl: int = 64):
         super().__init__()
         self.num_joints = num_joints
+        self.precision = "float32"
         f = num_features_pare
         self.keypoint_deconv_layers = _deconv_layers(num_input_features, f)
         self.smpl_deconv_layers = _deconv_layers(num_input_features, f)
         self.keypoint_final_layer = conv(f, num_joints + 1, 1, bias=True)
         self.smpl_final_layer = conv(f, num_features_smpl, 1, bias=True)
         self.pose_mlp = LocallyConnected2d(f, 6, num_joints)
-        self.shape_mlp = nn.Linear(num_features_smpl * num_joints, 10)
-        self.cam_mlp = nn.Linear(num_features_smpl * num_joints, 3)
+        self.shape_mlp = Linear(num_features_smpl * num_joints, 10)
+        self.cam_mlp = Linear(num_features_smpl * num_joints, 3)
 
     def feature_extractor(self, features: torch.Tensor) -> dict:
         """Backbone features (N,480,56,56) -> pooled per-part features."""
+        with precision_scope(self.precision):
+            return self._feature_extractor(features)
+
+    def _feature_extractor(self, features: torch.Tensor) -> dict:
         heatmaps = self.keypoint_final_layer(
             self.keypoint_deconv_layers(features))           # (N,J+1,H,W)
         smpl_feats = self.smpl_deconv_layers(features)       # (N,128,H,W)
@@ -61,7 +73,14 @@ class PareHead(nn.Module):
     def predict(self, point_local_feat: torch.Tensor,
                 cam_shape_feats: torch.Tensor) -> dict:
         """Final regressors from the pooled (N,J,C) features."""
+        with precision_scope(self.precision):
+            return self._predict(point_local_feat, cam_shape_feats)
+
+    def _predict(self, point_local_feat: torch.Tensor,
+                 cam_shape_feats: torch.Tensor) -> dict:
         n = point_local_feat.shape[0]
+        point_local_feat = point_local_feat.to(self.shape_mlp.weight.dtype)
+        cam_shape_feats = cam_shape_feats.to(self.shape_mlp.weight.dtype)
         pred_pose6d = self.pose_mlp(point_local_feat)  # (N,J,6)
         shape_flat = cam_shape_feats.transpose(1, 2).reshape(n, -1)
         pred_shape = self.shape_mlp(shape_flat)

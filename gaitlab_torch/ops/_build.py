@@ -32,7 +32,7 @@ SIGNATURES = {
     "keypoint_attention": ("gaitlab_keypoint_attention",
                            (_P, _L, _L, _L, _I, _P, _L, _L, _L, _I,
                             _P, _L, _L, _L, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _P)),
+                            _I, _I, _I, _I, _I, _I, _I, _I, _P)),
 }
 
 _libs: dict = {}

@@ -19,7 +19,10 @@ kernel forward and differentiates through the softmax by hand.
 
 The public signature is gaitlab's NHWC one. The kernel reads through
 strides, so the head passes its NCHW tensors as permuted views and no copy
-is made.
+is made. The inputs are all float32 or all bf16 (the head of a bf16 trunk,
+the runner's trunk_dtype): the kernel then reads bf16 and converts in
+registers, and either way the outputs are float32, as gaitlab's wrapper
+upcasts before its pallas_call. The plain version upcasts and pools.
 """
 
 from __future__ import annotations
@@ -92,7 +95,11 @@ def keypoint_attention(features: torch.Tensor,
 
 def keypoint_attention_plain(features: torch.Tensor, cam_feats: torch.Tensor,
                              heatmaps: torch.Tensor):
-    """Plain PyTorch version of `keypoint_attention_fused`."""
+    """Plain PyTorch version of `keypoint_attention_fused`; bf16 inputs
+    are upcast to float32 first (float64 ones stay float64)."""
+    features, cam_feats, heatmaps = (
+        a if a.dtype in (torch.float32, torch.float64) else a.float()
+        for a in (features, cam_feats, heatmaps))
     return (keypoint_attention(features, heatmaps),
             keypoint_attention(cam_feats, heatmaps))
 
@@ -112,7 +119,8 @@ def _position_strides(x: torch.Tensor, name: str) -> tuple:
 def keypoint_attention_fused(features: torch.Tensor, cam_feats: torch.Tensor,
                              heatmaps: torch.Tensor):
     """features (B,H,W,C1), cam_feats (B,H,W,C2), heatmaps (B,H,W,J) raw
-    part logits -> (pooled features (B,J,C1), pooled cam (B,J,C2)), float32.
+    part logits, all float32 or all bf16 -> (pooled features (B,J,C1),
+    pooled cam (B,J,C2)), float32.
 
     On CUDA tensors this launches the kernel (or raises); on CPU tensors
     it runs `keypoint_attention_plain`. Either way through the custom op
@@ -128,6 +136,7 @@ def keypoint_attention_fused(features: torch.Tensor, cam_feats: torch.Tensor,
 
 
 keypoint_attention_fused.launches = 0
+keypoint_attention_fused.launches_bf16 = 0  # those of them on bf16 inputs
 keypoint_attention_fused.backwards = 0
 
 
@@ -135,14 +144,18 @@ def _launch(features: torch.Tensor, cam_feats: torch.Tensor,
             heatmaps: torch.Tensor):
     """The op's CUDA implementation: checks, scratch, the kernel's two
     launches (split, and merge where there are several splits); counts one
-    launch of the wrapper."""
+    launch of the wrapper (and one in `launches_bf16` on bf16 inputs)."""
     args = (features, cam_feats, heatmaps)
     dev = features.device
     if dev.type != "cuda" or any(a.device != dev for a in args):
         raise ValueError("keypoint_attention_fused: all inputs must be on one "
                          f"CUDA device (got {[str(a.device) for a in args]})")
-    if any(a.dtype != torch.float32 or a.dim() != 4 for a in args):
-        raise ValueError("keypoint_attention_fused: inputs must be 4-d float32")
+    dtype = features.dtype
+    if (dtype not in (torch.float32, torch.bfloat16)
+            or any(a.dtype != dtype or a.dim() != 4 for a in args)):
+        raise ValueError("keypoint_attention_fused: inputs must be 4-d, all "
+                         "float32 or all bfloat16 (got "
+                         f"{[a.dtype for a in args]})")
     b, h, w, c1 = features.shape
     c2 = cam_feats.shape[-1]
     j = heatmaps.shape[-1]
@@ -163,8 +176,10 @@ def _launch(features: torch.Tensor, cam_feats: torch.Tensor,
         dev).multi_processor_count)
     # 16-byte copies where every position stride is 1 and every other
     # stride and pointer is 16-byte aligned (the head's NCHW views)
-    width = 4 if all(
-        st[1] == 1 and st[0] % 4 == 0 and st[2] % 4 == 0
+    bf16 = dtype == torch.bfloat16
+    vec = 8 if bf16 else 4  # elements in 16 bytes
+    width = vec if all(
+        st[1] == 1 and st[0] % vec == 0 and st[2] % vec == 0
         and a.data_ptr() % 16 == 0 for a, st in zip(args, strides)) else 1
     ms = acc = None
     if plan.n_split > 1:
@@ -181,10 +196,12 @@ def _launch(features: torch.Tensor, cam_feats: torch.Tensor,
             out1.data_ptr(), out2.data_ptr(),
             None if ms is None else ms.data_ptr(),
             None if acc is None else acc.data_ptr(), b, hw, plan.n_split,
-            plan.split_len, plan.n_chunk, width, plan.smem,
+            plan.split_len, plan.n_chunk, width, int(bf16), plan.smem,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "keypoint_attention")
     _build.count(keypoint_attention_fused)
+    if bf16:
+        _build.count(keypoint_attention_fused, "launches_bf16")
     return out1, out2
 
 
@@ -203,8 +220,10 @@ def _op_cpu(features, cam_feats, heatmaps):
 @_op.register_fake
 def _op_fake(features, cam_feats, heatmaps):
     b, j = features.shape[0], heatmaps.shape[-1]
-    return (features.new_empty((b, j, features.shape[-1])),
-            features.new_empty((b, j, cam_feats.shape[-1])))
+    return (features.new_empty((b, j, features.shape[-1]),
+                               dtype=torch.float32),
+            features.new_empty((b, j, cam_feats.shape[-1]),
+                               dtype=torch.float32))
 
 
 def _setup_backward(ctx, inputs, output):
@@ -216,8 +235,12 @@ def _backward(ctx, d_out1, d_out2):
     logits, d_features = attn^T d_out1, d_cam = attn^T d_out2, and the
     logits get attn * (d_attn - sum_hw attn * d_attn) with d_attn =
     d_out1 features^T + d_out2 cam^T. Each comes back in its input's
-    (B,H,W,C) shape; counts one backward."""
-    features, cam_feats, heatmaps = ctx.saved_tensors
+    (B,H,W,C) shape and dtype (bf16 inputs' in float32); counts one
+    backward."""
+    saved = ctx.saved_tensors
+    features, cam_feats, heatmaps = (
+        a if a.dtype in (torch.float32, torch.float64) else a.float()
+        for a in saved)
     b, h, w, _ = features.shape
     hw = h * w
     attn = torch.softmax(heatmaps.reshape(b, hw, -1), dim=1)  # (B,HW,J)
@@ -232,7 +255,8 @@ def _backward(ctx, d_out1, d_out2):
         grads[2] = (attn * (d_attn - (attn * d_attn).sum(1, keepdim=True))
                     ).reshape(heatmaps.shape)
     _build.count(keypoint_attention_fused, "backwards")
-    return tuple(grads)
+    return tuple(None if g is None else g.to(a.dtype)
+                 for g, a in zip(grads, saved))
 
 
 _op.register_autograd(_backward, setup_context=_setup_backward)

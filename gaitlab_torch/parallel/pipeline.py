@@ -17,6 +17,13 @@ microbatch; stage 1's stream waits on it before the boundary copy
 (`features.to(stage-1 device, non_blocking=True)`), which on one card is
 no copy at all: the event alone orders the stages. A device list may
 name a card twice, so that both stages share it on separate streams.
+
+Each stage runs at its module's modes: the backbone's regions and the
+head set the TF32 gate (device.math_mode) themselves, and the SMPL
+regression runs with TF32 off, so the two stages' threads take turns at
+the gate when their modes differ. (gaitlab builds its pipeline without
+the runner's precision, so its pp path runs at the backend's default: a
+fault of the reference, not copied.)
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from gaitlab_torch.device import float32_math, upload
+from gaitlab_torch.device import upload
 from gaitlab_torch.nn.grnet import vp_regress
 from gaitlab_torch.parallel import mesh as mesh_mod
 from gaitlab_torch.parallel.replicas import Replicas, scatter
@@ -110,6 +117,20 @@ class GRNetPipeline:
 
     def __init__(self, model, devices: Optional[Sequence] = None,
                  n_stage0: Optional[int] = None):
+        devices, n_stage0 = self.check_devices(model, n_stage0, devices)
+        self.model = model
+        self._dp0 = n_stage0
+        self._dp1 = len(devices) - n_stage0
+        core = model.module
+        self._stage0 = _Stage(core.backbone, devices[:n_stage0])
+        self._stage1 = _Stage(core.head, devices[n_stage0:])
+        self._smpl = [model.smpl.to(d) for d in self._stage1.replicas.devices]
+
+    @staticmethod
+    def check_devices(model, n_stage0: Optional[int] = None,
+                      devices: Optional[Sequence] = None) -> tuple:
+        """(devices, n_stage0) for a pipeline of `model`, or ValueError (the
+        gait branch, fewer than two devices, a group left empty)."""
         if model.module.use_gait_feat:
             raise ValueError(
                 "GRNetPipeline parallelises the per-frame trunk; the gait "
@@ -122,13 +143,7 @@ class GRNetPipeline:
             n_stage0 = len(devices) // 2
         if not 0 < n_stage0 < len(devices):
             raise ValueError(f"n_stage0={n_stage0} of {len(devices)}")
-        self.model = model
-        self._dp0 = n_stage0
-        self._dp1 = len(devices) - n_stage0
-        core = model.module
-        self._stage0 = _Stage(core.backbone, devices[:n_stage0])
-        self._stage1 = _Stage(core.head, devices[n_stage0:])
-        self._smpl = [model.smpl.to(d) for d in self._stage1.replicas.devices]
+        return devices, n_stage0
 
     def default_microbatch(self, n: int, target: int = 32) -> int:
         """Smallest valid microbatch >= min(target, n): a multiple of the
@@ -146,7 +161,7 @@ class GRNetPipeline:
         stage = self._stage0
         devices = stage.replicas.devices
         try:
-            with stage.current(), torch.inference_mode(), float32_math():
+            with stage.current(), torch.inference_mode():
                 for t in range(n_mb):
                     mb = crops[t * microbatch:(t + 1) * microbatch]
                     feats = stage.replicas.apply(
@@ -171,7 +186,7 @@ class GRNetPipeline:
                              joint_mode=joint_mode)[0]
             return {k: v[0] for k, v in out.items()}
 
-        with stage.current(), torch.inference_mode(), float32_math():
+        with stage.current(), torch.inference_mode():
             while (item := handoff.get()) is not None:
                 if errors:
                     continue

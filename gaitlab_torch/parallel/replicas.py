@@ -26,7 +26,7 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
-from gaitlab_torch.device import float32_math
+from gaitlab_torch.device import held_math_mode, shared_math_mode
 from gaitlab_torch.parallel.mesh import canonical
 
 
@@ -59,7 +59,10 @@ def parallel_apply(fns: Sequence[Callable], inputs: Sequence[tuple],
     """fns[i](*inputs[i]) for every i at once, each on its own thread (the
     only one, in the caller's thread, when there is one call), with
     devices[i] and streams[i] current (None on the CPU), the caller's grad
-    and inference modes and float32 math (TF32 off).
+    and inference modes, and the caller's turn at the TF32 gate when it
+    holds one (device.shared_math_mode): the calls then run at its setting
+    and may not ask for the other. Otherwise each call's segments set the
+    switches themselves.
 
     Each stream first waits for the caller's current stream on its device,
     where the inputs were made, and the inputs are recorded on it for the
@@ -68,6 +71,7 @@ def parallel_apply(fns: Sequence[Callable], inputs: Sequence[tuple],
     The first error, in replica order, is raised again here."""
     n = len(fns)
     grad, infer = torch.is_grad_enabled(), torch.is_inference_mode_enabled()
+    tf32 = held_math_mode()
     callers = [None if s is None else torch.cuda.current_stream(d)
                for d, s in zip(devices, streams)]
     for args, stream, caller in zip(inputs, streams, callers):
@@ -82,7 +86,7 @@ def parallel_apply(fns: Sequence[Callable], inputs: Sequence[tuple],
         try:
             with _on(devices[i], streams[i]), \
                     torch.inference_mode(infer), \
-                    torch.set_grad_enabled(grad), float32_math():
+                    torch.set_grad_enabled(grad), shared_math_mode(tf32):
                 results[i] = fns[i](*inputs[i])
         except BaseException as e:  # raised again in the caller below
             errors[i] = e

@@ -1,6 +1,6 @@
 """Track-level inference: frames -> crops -> bucketed GRNet -> numpy.
 
-Counterpart of gaitlab/pipeline/runner.py in float32. Frames arrive in
+Counterpart of gaitlab/pipeline/runner.py. Frames arrive in
 chunks (from memory, from image files through the prefetching
 native loader, `ingest_chunk` at a time, or as a video reader decodes
 them) and are cropped on the device (small
@@ -23,6 +23,19 @@ image-centre rows and its real-frame count (n_valid); the track-level
 gait estimate (pred_avg) of each forward is then averaged with weights
 equal to its real frames, and pred_phase is concatenated.
 
+Precision: `precision` ("float32", the port's default, "high" or
+"default"), `head_precision` ("auto" by default) and `trunk_dtype` (None
+or "bfloat16") are gaitlab's, and resolve by gaitlab's rules
+(`resolved_*_precision`). The forward runs a view of the model's trunk at
+the resolved modes (`_resolved_module`), or under trunk_dtype a bf16 copy
+of it; each of its segments switches the TF32 gate (device.math_mode) as
+its mode says, and the SMPL regression always runs with TF32 off. What
+the runner derives from the model (that view, the bf16 copy, the
+data-parallel replicas and SMPL's tensors on their devices, the
+pipeline) is rebuilt whenever `model.module` or `model.smpl` is
+reassigned or one of their tensors has changed in place (a weight
+reload), and the pipeline is built at first use, as gaitlab does.
+
 `_forward(n, raw_uint8)` is one bucket's forward as a module whose weights
 are inputs (gaitlab's jitted `GRNetRunner._forward`): `serve.py` exports
 it, and its serving runner feeds the exported programs the bucket's raw
@@ -33,6 +46,8 @@ a live runner needs it.
 from __future__ import annotations
 
 import bisect
+import copy
+import dataclasses
 import os
 import queue
 import threading
@@ -42,7 +57,7 @@ from typing import TYPE_CHECKING, Optional, Sequence
 import numpy as np
 import torch
 
-from gaitlab_torch.device import float32_math, upload
+from gaitlab_torch.device import upload
 from gaitlab_torch.parallel import mesh as mesh_mod
 from gaitlab_torch.parallel.replicas import Replicas, gather, scatter
 from gaitlab_torch.pipeline import crop as crop_mod
@@ -54,6 +69,8 @@ if TYPE_CHECKING:
 DEFAULT_BUCKETS = (32, 64, 128, 256, 450)
 OUTPUT_KEYS = ("theta", "verts", "kp_2d", "kp_3d")
 GAIT_KEYS = ("pred_avg", "pred_phase")
+PRECISIONS = ("float32", "high", "default")
+TRUNK_DTYPES = {"bfloat16": torch.bfloat16}
 
 
 @dataclass
@@ -63,8 +80,16 @@ class GRNetRunner:
     crop_size: int = 224
     bbox_scale: float = 1.0
     ingest_chunk: int = 32   # full-res frames decoded / staged at once
-    # only "float32" (TF32 off) is ported; the faster modes come later
+    # "float32" (TF32 off; the port's default, where gaitlab's is "high"),
+    # "high" (three TF32 passes of bf16-masked parts: gaitlab's bf16_3x)
+    # or "default" (one TF32 pass); layers.py says what each means here
     precision: str = "float32"
+    # the PARE head's mode: "auto" = "default" under precision "high" (and
+    # inherit otherwise), None = inherit, or a mode
+    head_precision: Optional[str] = "auto"
+    # "bfloat16": the trunk (backbone, head, corrector) runs on a bf16 copy
+    # of the weights with bf16 activations; SMPL stays float32
+    trunk_dtype: Optional[str] = None
     # "device": crop on the card; "host": cv2 on the CPU; "auto": host for
     # frames larger than twice the crop area, the device otherwise
     crop_on: str = "auto"
@@ -84,15 +109,22 @@ class GRNetRunner:
     # the bucket forward takes raw uint8 crops and normalizes them itself
     # (a serving runner's programs): host crops then stay uint8 until then
     takes_uint8 = False
-    # with a mesh: the replicas and SMPL's tensors on each replica's device
-    _dp: Optional[tuple] = field(default=None, init=False, repr=False)
-    _pp: object = field(default=None, init=False, repr=False)
+    # what is derived from the model's weights (_live), and the weights'
+    # identity and versions it was derived from
+    _derived: dict = field(default_factory=dict, init=False, repr=False)
+    _derived_from: object = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
-        if self.precision != "float32":
-            raise NotImplementedError(
-                f"precision={self.precision!r} is not ported yet; "
-                "use 'float32'")
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"precision={self.precision!r}: use one of "
+                             f"{PRECISIONS}")
+        if self.head_precision not in (None, "auto") + PRECISIONS:
+            raise ValueError(f"head_precision={self.head_precision!r}: use "
+                             f"'auto', None or one of {PRECISIONS}")
+        if self.trunk_dtype is not None and \
+                self.trunk_dtype not in TRUNK_DTYPES:
+            raise ValueError(f"trunk_dtype={self.trunk_dtype!r}: use None or "
+                             f"one of {tuple(TRUNK_DTYPES)}")
         if self.parallel not in (None, "dp", "pp"):
             raise ValueError(f"parallel={self.parallel!r}: use 'dp'/'pp'")
         if self.parallel == "pp" and self.mesh is not None:
@@ -115,14 +147,104 @@ class GRNetRunner:
             # each bucket splits evenly over the data axis
             d = self.mesh.shape[mesh_mod.DATA_AXIS]
             self.buckets = tuple({-(-b // d) * d for b in self.buckets})
-            reps = Replicas(self.model.module, self.mesh.data_devices)
-            self._dp = (reps, [self.model.smpl.to(dev)
-                               for dev in reps.devices])
         self.buckets = tuple(sorted(set(self.buckets)))
         if self.parallel == "pp":  # before any decode: fail fast
             from gaitlab_torch.parallel.pipeline import GRNetPipeline
 
-            self._pp = GRNetPipeline(self.model, n_stage0=self.pp_n_stage0)
+            GRNetPipeline.check_devices(self.model, self.pp_n_stage0)
+
+    # -- precision -----------------------------------------------------------
+
+    def resolved_head_precision(self) -> Optional[str]:
+        """The PARE head's mode: "auto" is "default" under precision "high"
+        and inherit (None) otherwise, as in gaitlab."""
+        head_prec = self.head_precision
+        if head_prec == "auto":
+            head_prec = "default" if self.precision == "high" else None
+        return head_prec
+
+    def resolved_region_precision(self) -> tuple:
+        """The backbone's per-region modes: a module-level override wins;
+        else ("heads", "w2x") under "high" (gaitlab's upsample-head convs
+        at two passes), and no region otherwise."""
+        mod_regions = tuple(self.model.module.backbone_region_precision)
+        if mod_regions:
+            return mod_regions
+        if self.precision == "high":
+            return (("heads", "w2x"),)
+        return ()
+
+    def resolved_resize_precision(self) -> str:
+        """gaitlab's resize precision: a non-default module setting wins,
+        else "high" under "high" and "highest" otherwise. The port's
+        resize does no matmul, so this only travels (nn/hrnet.py)."""
+        mod = self.model.module.backbone_resize_precision
+        if mod != "highest":
+            return mod
+        return "high" if self.precision == "high" else "highest"
+
+    @property
+    def _dp(self) -> Optional[tuple]:
+        """With a mesh: (the replicas, SMPL's tensors on their devices)."""
+        return self._live().get("dp")
+
+    def _resolved_module(self):
+        """The model's trunk at the resolved modes (GRNetCore.with_precision:
+        a view sharing the model's weights). Made even when the targets
+        are None or (): "inherit" must clear a module-level override, or a
+        module built with head_precision="default" would keep its head at
+        one TF32 pass inside a float32 run."""
+        module = self.model.module
+        want = (self.precision, self.resolved_head_precision(),
+                self.resolved_region_precision(),
+                self.resolved_resize_precision())
+        if want == (module.precision, module.head_precision,
+                    tuple(module.backbone_region_precision),
+                    module.backbone_resize_precision):
+            return module
+        return module.with_precision(*want)
+
+    def _weights_state(self) -> tuple:
+        """What tells a weight change: the identity of the module and of
+        SMPL's tensors, and every tensor's version counter (bumped by each
+        in-place write, such as load_state_dict's)."""
+        module, smpl = self.model.module, self.model.smpl
+        tensors = [*module.parameters(), *module.buffers(),
+                   *(t for t in smpl if isinstance(t, torch.Tensor))]
+        return (id(module), id(smpl),
+                sum(0 if t.is_inference() else t._version for t in tensors))
+
+    def _live(self, check: bool = True) -> dict:
+        """What the forwards run, derived from the model's current weights:
+        "core" (the resolved view, or its bf16 copy under trunk_dtype),
+        "model" (a GRNet of it), with a mesh "dp" (its replicas and SMPL's
+        tensors on their devices), and with parallel="pp" the pipeline,
+        built here at first use. All of it is made again when the weights
+        have changed since it was made (`_weights_state`); replica 0 is the
+        trunk itself (the model's module when it runs at the resolved modes
+        already, else a view of it, with the same tensors). The check walks
+        every tensor, so a session makes it once, when it opens, and its
+        buckets pass `check=False`, as gaitlab's session reads its
+        variables once."""
+        state = (self._weights_state() if check or not self._derived
+                 else self._derived_from)
+        if state != self._derived_from:
+            core = self._resolved_module()
+            if self.trunk_dtype is not None:
+                core = copy.deepcopy(core).to(TRUNK_DTYPES[self.trunk_dtype])
+            model = dataclasses.replace(self.model, module=core)
+            self._derived = {"core": core, "model": model}
+            if self.mesh is not None:
+                reps = Replicas(core, self.mesh.data_devices)
+                self._derived["dp"] = (reps, [self.model.smpl.to(dev)
+                                              for dev in reps.devices])
+            self._derived_from = state
+        if self.parallel == "pp" and "pp" not in self._derived:
+            from gaitlab_torch.parallel.pipeline import GRNetPipeline
+
+            self._derived["pp"] = GRNetPipeline(self._derived["model"],
+                                                n_stage0=self.pp_n_stage0)
+        return self._derived
 
     def _bucket(self, n: int) -> int:
         i = bisect.bisect_left(self.buckets, n)
@@ -132,13 +254,13 @@ class GRNetRunner:
 
     def _forward(self, n: int, raw_uint8: bool = False):
         """The forward at bucket n as a module of (state_dict, SMPLParams,
-        NHWC crops[, bbox, cimg, n_valid]) with the weights as inputs:
-        uint8 crops, normalized inside, with `raw_uint8`. What
-        `serve.export_forward` exports; float32 with TF32 off is the
-        caller's (`device.float32_math`)."""
+        NHWC crops[, bbox, cimg, n_valid]) with the weights as inputs (of
+        the trunk `_live` runs: bf16 under trunk_dtype): uint8 crops,
+        normalized inside, with `raw_uint8`. What `serve.export_forward`
+        exports, part by part (BucketForward.parts)."""
         from gaitlab_torch.nn.grnet import BucketForward
 
-        return BucketForward(self.model.module, self.model.joint_mode,
+        return BucketForward(self._live()["core"], self.model.joint_mode,
                              raw_uint8)
 
     def _forward_bucket(self, crops: torch.Tensor, bbox=None, cimg=None
@@ -154,18 +276,19 @@ class GRNetRunner:
         if self.model.module.use_gait_feat:
             kw = dict(bbox=_pad_rows(bbox, b), cimg=_pad_rows(cimg, b),
                       n_valid=m)
-        if self._dp is None:
-            out = self.model.forward(crops, **kw)[0]
+        live = self._live(check=False)  # checked when the session opened
+        if "dp" not in live:
+            out = live["model"].forward(crops, **kw)[0]
         else:
-            out = self._dp_forward(crops, **kw)
+            out = self._dp_forward(live["dp"], crops, **kw)
         res = {k: out[k][0, :m] for k in OUTPUT_KEYS + ("pred_phase",)
                if k in out}
         if "pred_avg" in out:
             res["pred_avg"] = out["pred_avg"]  # (1,3): one per forward
         return res
 
-    def _dp_forward(self, crops: torch.Tensor, bbox=None, cimg=None,
-                    n_valid: Optional[int] = None) -> dict:
+    def _dp_forward(self, dp: tuple, crops: torch.Tensor, bbox=None,
+                    cimg=None, n_valid: Optional[int] = None) -> dict:
         """One padded bucket's forward, data-parallel over the mesh's data
         axis: the bucket split evenly over the replicas, each replica's part
         launched from its own thread on its own stream, the outputs gathered
@@ -176,7 +299,7 @@ class GRNetRunner:
         sharding has it: the trunk split, the GRU not."""
         from gaitlab_torch.nn.grnet import vp_regress
 
-        reps, smpls = self._dp
+        reps, smpls = dp
         dev0, joint_mode = reps.devices[0], self.model.joint_mode
 
         def nchw(x):
@@ -192,7 +315,7 @@ class GRNetRunner:
             return out
 
         parts = scatter(crops, reps.devices)
-        with float32_math(), torch.inference_mode():
+        with torch.inference_mode():
             if bbox is None:
                 return gather(reps.apply(whole, list(zip(smpls, parts))),
                               dev0, dim=1)
@@ -207,14 +330,16 @@ class GRNetRunner:
         """A whole track's normalized crops through the 2-stage pipeline
         at its default microbatch: gaitlab's keys (theta, verts, kp_2d,
         kp_3d) that `fetch` asks for, as numpy arrays."""
-        out = self._pp(crops)
+        out = self._live()["pp"](crops)
         want = set(OUTPUT_KEYS if self.fetch is None else self.fetch)
         return {k: out[k][0] for k in OUTPUT_KEYS if k in want}
 
     def open_stream(self) -> "ForwardStream":
         """An incremental forward session: feed() crop chunks (and, for
         the gait branch, their bbox/cimg rows) as they come, finish()
-        once."""
+        once. The session runs on what `_live` derives from the weights
+        as they are now."""
+        self._live()
         return ForwardStream(self)
 
     def _forward_stream(self, crop_chunks, bbox=None, cimg=None) -> dict:

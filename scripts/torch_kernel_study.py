@@ -419,7 +419,7 @@ def serve_study() -> None:
             "module_s": t2 - t1, "load_weights_s": t3 - t2,
             "upload_s": time.perf_counter() - t3}), flush=True)
         sm = serve.load_artifacts(art)
-    prog = sm._programs[B]
+    (prog,) = sm._programs[B]  # float32: one program a bucket
     x = upload(np.random.default_rng(0).integers(
         0, 255, (B, 224, 224, 3)).astype(np.uint8), "cuda")
     args = (sm.variables, sm.smpl._replace(faces=None), x)

@@ -126,12 +126,23 @@ def test_gait_report_on_spin2_joints_matches_gaitlab():
     assert len(got["features"]["events"]["left"]) >= 3
 
 
-def test_load_pipeline_on_the_cpu_and_its_refusals():
+def test_load_pipeline_on_the_cpu_and_its_refusals(monkeypatch):
     model, runner = pt_api.load_pipeline(device="cpu", use_gait_feat=True)
     assert model.device == torch.device("cpu")
     assert model.module.use_gait_feat and runner.model is model
-    with pytest.raises(NotImplementedError, match="precision"):
-        pt_api.load_pipeline(device="cpu", precision="high")
+    # precision="high" reaches the runner (its head resolves to "default",
+    # the upsample heads to w2x) and runs a full-width crop
+    monkeypatch.setenv("GAITLAB_BUCKETS", "1")
+    model, runner = pt_api.load_pipeline(device="cpu", precision="high")
+    assert (runner.precision, runner.resolved_head_precision(),
+            runner.resolved_region_precision()) == (
+                "high", "default", (("heads", "w2x"),))
+    crop = np.random.default_rng(0).normal(size=(1, 224, 224, 3))
+    out = runner.forward_crops(torch.from_numpy(crop.astype(np.float32)))
+    assert out["kp_3d"].shape == (1, 29, 3)
+    assert np.isfinite(out["kp_3d"]).all()
+    with pytest.raises(ValueError, match="precision"):
+        pt_api.load_pipeline(device="cpu", precision="bf16")
     with pytest.raises(FileNotFoundError):
         pt_api.load_pipeline(ckpt="no/such.pth", device="cpu")
     if not torch.cuda.is_available():

@@ -307,13 +307,39 @@ def test_a_short_decode_is_quarantined_unless_the_forward_failed(
         run(pt_bg, corpus, str(tmp_path / "db2.json"), stream=True)
 
 
-def test_precision_other_than_float32_is_not_ported(corpus, tmp_path):
-    args = pt_bg.build_parser().parse_args(
-        ["--vid_folder", corpus[1], "--bbox_path", corpus[2], "--outpath",
-         str(tmp_path / "db.json"), "--precision", "default", "--cpu_only"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pt_bg.main(args)
-    assert os.listdir(tmp_path) == []
+def test_precision_other_than_float32_is_not_ported(corpus, patched,
+                                                    databases, tmp_path):
+    """--precision reaches the runner and runs: "default" (one TF32 pass on
+    the card) computes in float32 on the CPU, so its database is the
+    float32 run's; a precision the runner does not know fails before any
+    work."""
+    def args(precision, name):
+        return pt_bg.build_parser().parse_args(
+            ["--vid_folder", corpus[1], "--bbox_path", corpus[2],
+             "--outpath", str(tmp_path / name), "--precision", precision,
+             "--cpu_only", "--crop_size", str(CROP)])
+
+    seen = []
+    real = PtRunner.__post_init__
+
+    def post_init(self):
+        real(self)
+        seen.append((self.precision, self.resolved_head_precision()))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(PtRunner, "__post_init__", post_init)
+        pt_bg.main(args("default", "db.json"))
+    assert seen == [("default", None)]
+    got = joblib.load(str(tmp_path / "db_0.json"))
+    want = databases["pt", "folder"]
+    np.testing.assert_array_equal(got["vid_name"], want["vid_name"])
+    assert_close(got["joints3D"], want["joints3D"], rtol=1e-6, atol=1e-7,
+                 what="joints3D at default")
+    with pytest.raises(ValueError, match="precision"):
+        pt_bg.prepare_data(fv=corpus[2], vid_folder=corpus[1],
+                           outpath=str(tmp_path / "db2.json"),
+                           precision="bf16", cpu_only=True, crop_size=CROP)
+    assert sorted(os.listdir(tmp_path)) == ["db_0.json"]
 
 def test_parsers_have_the_same_flags():
     def flags(parser):

@@ -27,6 +27,7 @@ from gaitlab_torch.device import resolve_device
 from gaitlab_torch.nn.grnet import GRNet as PtGRNet
 from gaitlab_torch.pipeline import medoids as pt_medoids
 from gaitlab_torch.pipeline import openpose as pt_openpose
+from gaitlab_torch.pipeline.runner import GRNetRunner as PtRunner
 from test_torch_models import assert_close, tiny_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -131,22 +132,44 @@ def test_parsers_have_the_same_flags():
     assert flags(pt_demo.build_parser()) == flags(jax_demo.build_parser())
 
 
-TRACKED = ["--vid_file", "x.mp4", "--tracking_path", "t.pkl"]
+class _FirstTrack(Exception):
+    """Ends a demo run after its runner's first track."""
 
 
-@pytest.mark.parametrize("argv", [
-    [*TRACKED, *flags] for flags in (
-        # video output (on unless --save_vid is passed), --mesh_render,
-        # --save_obj and --parallel are ported; precision modes still raise
-        # (test_torch_parallel_pipeline.py runs --parallel dp|pp)
-        ["--precision", "high"],
-        ["--save_vid", "--precision", "high"],
-        ["--save_vid", "--precision", "default"],
-        ["--mesh_render", "--precision", "default"],
-        ["--parallel", "dp", "--precision", "high"])])
-def test_unported_paths_raise(argv):
-    with pytest.raises(NotImplementedError, match="not ported"):
+@pytest.mark.parametrize("flags", [
+    # the paths that once raised as not ported: the precision modes now
+    # reach the runner and run (each run stops after the first track)
+    ["--precision", "high"],
+    ["--save_vid", "--precision", "high"],
+    ["--save_vid", "--precision", "default"],
+    ["--mesh_render", "--precision", "default"],
+    ["--parallel", "dp", "--precision", "high"]])
+def test_unported_paths_raise(clip, monkeypatch, flags):
+    d, vid, trackfile = clip
+    port = tiny_pair(seed=6)[2]
+    monkeypatch.setattr(pt_demo, "load_model", lambda args, cfg: port)
+    monkeypatch.setenv("GAITLAB_BUCKETS", "32")
+    seen = []
+    real = PtRunner.run_track
+
+    def run_track(self, *a, **kw):
+        out = real(self, *a, **kw)
+        seen.append((self.precision, self.resolved_head_precision(),
+                     self.parallel, out["joints3d"]))
+        raise _FirstTrack
+
+    monkeypatch.setattr(PtRunner, "run_track", run_track)
+    argv = ["--vid_file", vid, "--tracking_path", trackfile,
+            "--output_folder", str(d / "modes"), "--cpu_only", *flags]
+    with pytest.raises(_FirstTrack):
         pt_demo.main(pt_demo.build_parser().parse_args(argv))
+    precision = flags[flags.index("--precision") + 1]
+    (got, head, parallel, joints3d), = seen
+    assert (got, parallel) == (precision, "dp" if "--parallel" in flags
+                               else None)
+    assert head == ("default" if precision == "high" else None)
+    assert joints3d.shape == (N_FRAMES, 29, 3)
+    assert np.isfinite(joints3d).all()
 
 
 def test_entry_points_never_fall_back_to_the_cpu(clip):

@@ -7,7 +7,8 @@ every position and row once within Hopper's shared memory, and numpy
 emulations of the kernels' arithmetic (keypoint attention's split online
 softmax and merge; blendshapes' 3xTF32 products) match gaitlab. On a card
 (tests marked `gpu`, skipped without one): each CUDA kernel against its
-plain version at the main path's shapes. Only the emulation tests import
+plain version at the main path's shapes (keypoint attention on float32
+and on bf16 inputs). Only the emulation tests import
 gaitlab (and so JAX), inside the test, so the card's machine, which has no
 JAX, runs the card tests without the repo's conftest:
 
@@ -366,6 +367,33 @@ def test_keypoint_attention_kernel_nhwc_on_card(cuda, h, w):
         want = keypoint_attention_plain(*args)
     for a, x in zip(got, want):
         torch.testing.assert_close(a, x, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 37, 128])
+def test_keypoint_attention_kernel_on_bf16_on_card(cuda, b):
+    """bf16 NCHW views (16-byte loads of 8 positions) and contiguous bf16
+    NHWC tensors with a ragged HW (one element at a time): float32
+    outputs, against the plain version on the upcast inputs."""
+    g = torch.Generator(device=cuda).manual_seed(b)
+    bf = torch.bfloat16
+    f = torch.randn(b, 128, 56, 56, device=cuda, generator=g).relu().to(bf)
+    c = torch.randn(b, 64, 56, 56, device=cuda, generator=g).to(bf)
+    hm = (torch.randn(b, 25, 56, 56, device=cuda, generator=g) * 3).to(bf)
+    nhwc = tuple(torch.randn(2, 7, 9, ch, device=cuda, generator=g).to(bf)
+                 for ch in (256, 64, 24))
+    for args in ((f.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1),
+                  hm[:, 1:].permute(0, 2, 3, 1)), nhwc):
+        n = keypoint_attention_fused.launches_bf16
+        got = keypoint_attention_fused(*args)
+        torch.cuda.synchronize()
+        assert keypoint_attention_fused.launches_bf16 == n + 1
+        want = keypoint_attention_plain(*args)
+        for a, w in zip(got, want):
+            assert a.dtype == torch.float32
+            torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="bfloat16"):
+        keypoint_attention_fused(nhwc[0], nhwc[1].float(), nhwc[2])
 
 
 @pytest.mark.gpu

@@ -28,6 +28,7 @@ from gaitlab.core import geometry as jax_geometry
 from gaitlab.nn.grnet import GRNet as JaxGRNet
 from gaitlab.parallel import mesh as jax_mesh
 from gaitlab.pipeline import runner as jax_runner
+from gaitlab_torch import device as pt_device
 from gaitlab_torch.body import smpl as pt_smpl
 from gaitlab_torch.parallel import mesh as pt_mesh
 from gaitlab_torch.parallel import replicas as pt_replicas
@@ -214,14 +215,19 @@ def test_replicas_scatter_apply_gather():
     def fn(module, xs):
         seen.append((torch.is_grad_enabled(),
                      torch.is_inference_mode_enabled(),
-                     torch.backends.cudnn.allow_tf32))
+                     torch.backends.cudnn.allow_tf32,
+                     pt_device.held_math_mode()))
         return {"y": module(xs)}
 
-    with torch.inference_mode():
+    with torch.inference_mode(), pt_device.float32_math():
         out = pt_replicas.gather(reps.apply(fn, [(p,) for p in parts]), CPU)
     assert torch.equal(out["y"], lin(x).detach())
-    # each thread took the caller's modes and TF32 off
-    assert seen == [(False, True, False)] * 3
+    # each thread took the caller's modes and its turn at the TF32 gate
+    # (off); outside one, a thread holds none and sets its own
+    assert seen == [(False, True, False, False)] * 3
+    seen.clear()
+    reps.apply(fn, [(p,) for p in parts])
+    assert [s[3] for s in seen] == [None] * 3
     with pytest.raises(ValueError, match="split evenly"):
         pt_replicas.scatter(torch.zeros(4, 1), reps.devices)
 

@@ -188,12 +188,17 @@ def test_config_matches():
 
 
 def test_runner_refuses_unported_modes():
+    """The precision modes are ported (tests/test_torch_precision*.py run
+    them): "high" and "default" build a runner; what the runner does not
+    know is refused."""
     model = types.SimpleNamespace(device=torch.device("cpu"))
     for kw in ({"precision": "high"}, {"precision": "default"}):
-        with pytest.raises(NotImplementedError):
+        assert pt_runner.GRNetRunner(model, **kw).precision == \
+            kw["precision"]
+    for kw in ({"precision": "bf16"}, {"head_precision": "w2x"},
+               {"trunk_dtype": "float16"}, {"crop_on": "gpu"}):
+        with pytest.raises(ValueError):
             pt_runner.GRNetRunner(model, **kw)
-    with pytest.raises(ValueError):
-        pt_runner.GRNetRunner(model, crop_on="gpu")
 
 
 def test_runner_buckets(monkeypatch):

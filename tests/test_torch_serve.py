@@ -82,12 +82,16 @@ def served(tmp_path_factory):
 def test_manifest_and_files(served):
     m, art = served["manifest"], served["art_dir"]
     assert m["format"] == "torch.export"
+    assert m["manifest_version"] == serve.MANIFEST_VERSION == 2
     assert m["torch_version"] == torch.__version__
     assert m["platforms"] == ["cpu"] and m["buckets"] == [4]
     assert m["raw_uint8"] and m["crop_size"] == CROP and not m["gait"]
     assert m["precision"] == "float32" and m["joint_mode"] == "spin2"
-    assert (m["head_precision"], m["trunk_dtype"]) == ("float32", "float32")
-    assert m["files"] == {"4": {"cpu": "forward_b4.cpu.pt2"}}
+    # the modes the program runs, resolved: float32 throughout, one
+    # program with TF32 off
+    assert (m["head_precision"], m["trunk_dtype"]) == (None, None)
+    assert (m["region_precision"], m["tf32"]) == ([], [False])
+    assert m["files"] == {"4": {"cpu": ["forward_b4.cpu.pt2"]}}
     assert m["weights"] == "weights.npz"
     with open(os.path.join(art, "manifest.json")) as f:
         assert json.load(f) == m
@@ -236,6 +240,53 @@ def test_load_runner_matches_live(served, monkeypatch):
     with pytest.raises(ValueError, match="raw_uint8"):
         serve.load_runner(served["art_dir"], device="cpu",
                           crop_on="device").run_track(frames, bboxes)
+
+
+def test_reads_a_manifest_written_before_the_precision_modes(served,
+                                                            tmp_path):
+    """An artifact directory exported before the manifest had a version
+    (one float32 program per bucket and platform, its file name a string,
+    "head_precision" and "trunk_dtype" written as "float32", no TF32 list
+    and no region modes) loads as float32 with TF32 off, through
+    load_artifacts and load_runner; a version this module does not know
+    asks for a new export."""
+    import shutil
+
+    old = tmp_path / "old"
+    shutil.copytree(served["art_dir"], old)
+    m = dict(served["manifest"])
+    for key in ("manifest_version", "tf32", "region_precision",
+                "resize_precision"):
+        del m[key]
+    m.update(head_precision="float32", trunk_dtype="float32",
+             files={b: {p: f[0] for p, f in files.items()}
+                    for b, files in m["files"].items()})
+    (old / "manifest.json").write_text(json.dumps(m))
+
+    loaded = serve.load_artifacts(str(old), device="cpu")
+    man = loaded.manifest
+    assert man["files"] == {"4": {"cpu": ["forward_b4.cpu.pt2"]}}
+    assert (man["tf32"], man["region_precision"], man["trunk_dtype"],
+            man["head_precision"]) == ([False], [], None, None)
+    crops = u8_crops(3, seed=1)
+    got, want = loaded.call(None, None, crops), served["loaded"].call(
+        None, None, crops)
+    for k in PER_FRAME:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    srunner = serve.load_runner(str(old), device="cpu")
+    assert (srunner.precision, srunner.resolved_head_precision(),
+            srunner.trunk_dtype) == ("float32", None, None)
+    frames, bboxes = track(5)
+    got = srunner.run_track(frames, bboxes)
+    want = serve.load_runner(served["art_dir"], device="cpu").run_track(
+        frames, bboxes)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+    m.update(manifest_version=3)
+    (old / "manifest.json").write_text(json.dumps(m))
+    with pytest.raises(ValueError, match="export the artifacts again"):
+        serve.load_artifacts(str(old), device="cpu")
 
 
 def test_serve_cli_e2e_matches_demo_onepass(tmp_path, monkeypatch, capsys):
