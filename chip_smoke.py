@@ -9,8 +9,10 @@ Phases, each of which exits non-zero on failure:
              codec headers are missing, and the build error is printed)
   2. kernels hold each kernel against its plain PyTorch version on the card
              at main-path shapes (B = 1, 37, 128 and 450: ragged, one wave,
-             the largest bucket); time kernel, plain version and one library
-             call with CUDA events at B = 128
+             the largest bucket; B1 on float32 and on bf16 inputs, the
+             latter without a copy); time kernel, plain version and one
+             library call with CUDA events at B = 128 (and B1's FP32 kernel
+             on the bf16 kernel's values)
   3. path    run `gaitlab_torch.cli.demo --tracking_path` at full width
              (HRNet-W32 + PARE + synthetic SMPL, 224 crops) on a synthetic
              clip with two tracks (150 and 60 frames: two buckets, tail
@@ -153,11 +155,12 @@ Phases, each of which exits non-zero on failure:
              "high" (upsample heads at w2x, head at "default"), "default"
              and "high" with trunk_dtype="bfloat16", each at bucket 128 on
              walk.mp4's crops: every kernel call held (B1 on bf16 inputs
-             under the bf16 trunk), the TF32 switches inside every
-             convolution (on under a TF32 mode, off at "float32") and every
-             SMPL skinning call (always off), frames/s (CUDA events), kp_3d
-             MPJPE against the float32 path, the joints' spread over
-             frames, and qualified or not against 0.5 mm; (b) MAX-GRNet at
+             under the bf16 trunk, with no copy of them), the TF32
+             switches inside every convolution (on under a TF32 mode, off
+             at "float32") and every SMPL skinning call (always off),
+             frames/s (CUDA events), kp_3d MPJPE against the float32
+             path, the joints' spread over frames, and qualified or not
+             against 0.5 mm; (b) MAX-GRNet at
              "high", bucket 256, 200 frames, against its float32 path;
              (c) `demo --precision high`, `api.load_pipeline(precision=
              "high")`, `batch_generation --precision high` (every clip
@@ -178,10 +181,12 @@ its data-parallel train steps ("train_dp"), and phase 15's mode runs
 ("precision_float32", "_high", "_default", "_bf16"), MAX-GRNet at
 "high" ("precision_gait_high") and entry points ("demo_high",
 "api_high", "batchgen_high", "serve_high"), each counted from 0 just
-before its run; B1's bf16 instantiation is a row of its own
-("keypoint_attention_bf16", phase 15's paths), and B1's row counts its
-float32 launches; launches is their sum; max_abs_err is the largest over
-phases 2, 6, 8, 10, 11, 12, 13 (13's backwards included), 14 and 15; fwd_bwd_ms
+before its run; B1 on bf16 inputs, its own kernel
+(csrc/keypoint_attention_bf16.cu), is a row of its own
+("keypoint_attention_bf16", phase 15's paths, where the bf16 trunk's
+head must hand it views it reads without a copy), and B1's row counts
+its float32 launches; launches is their sum; max_abs_err is the largest
+over phases 2, 6, 8, 10, 11, 12, 13 (13's backwards included), 14 and 15; fwd_bwd_ms
 holds phase 13's forward + backward timings. Kernel calls are seen at the ops' CUDA implementations, so
 calls from inside a loaded torch.export program are counted and checked
 too. The line before the last holds the card's name and power limit, and the
@@ -469,18 +474,20 @@ def check_keypoint_attention(gen, flush) -> dict:
 
 
 def check_keypoint_attention_bf16(gen, flush) -> dict:
-    """B1 on bf16 inputs (the head of a bf16 trunk) against its plain
-    version, which upcasts; at B = 128 its time beside the FP32 kernel on
-    the same values, the bound of its bf16 bytes and one
-    scaled_dot_product_attention in bf16."""
+    """B1 on bf16 inputs (the head of a bf16 trunk; its own kernel,
+    csrc/keypoint_attention_bf16.cu) against its plain version, which
+    upcasts, on the head's views, which it must read without a copy; at
+    B = 128 its time beside the FP32 kernel on the same values, the bound
+    of its bytes and one scaled_dot_product_attention in bf16."""
     import torch
     import torch.nn.functional as F
 
     from gaitlab_torch.ops.keypoint_attention import (
-        keypoint_attention_fused, keypoint_attention_plain)
+        keypoint_attention_fused, keypoint_attention_plain, launch_plan_bf16)
 
     H = W = 56
     C1, C2, J = 128, 64, 24
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     err = 0.0
     for b in CHECK_BATCHES:
         bf = torch.bfloat16
@@ -490,6 +497,7 @@ def check_keypoint_attention_bf16(gen, flush) -> dict:
               * 3).to(bf)
         args = (f.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1),
                 hm[:, 1:].permute(0, 2, 3, 1))
+        copies = keypoint_attention_fused.copies_bf16
         got, ref = keypoint_attention_fused(*args), keypoint_attention_plain(*args)
         ref64 = keypoint_attention_plain(*(a.double() for a in args))
         torch.cuda.synchronize()
@@ -498,13 +506,19 @@ def check_keypoint_attention_bf16(gen, flush) -> dict:
             return max((x - y).abs().max().item() for x, y in zip(xs, ys))
 
         e = max_err(got, ref)
+        plan = launch_plan_bf16(b, H * W, sms, C1, C2)
         log(f"[kernels] keypoint_attention bf16 B={b}: outputs "
             f"{got[0].dtype}, max_abs_err={e:.3e} against the plain version "
             f"on the upcast inputs (tolerance {B1_ATOL:g}); against float64: "
-            f"kernel {max_err(got, ref64):.3e}, plain {max_err(ref, ref64):.3e}")
+            f"kernel {max_err(got, ref64):.3e}, plain {max_err(ref, ref64):.3e}; "
+            f"{plan.n_split} splits of {plan.split_len} positions, "
+            f"{1 + (plan.n_split > 1)} device launches per call, "
+            f"{keypoint_attention_fused.copies_bf16 - copies} copies")
         if not (e <= B1_ATOL and got[0].dtype == torch.float32):
             raise AssertionError(f"keypoint_attention on bf16 disagrees with "
                                  f"its plain version: {e} > {B1_ATOL}")
+        if keypoint_attention_fused.copies_bf16 != copies:
+            raise AssertionError("the bf16 kernel copied the head's views")
         err = max(err, e)
     f32 = tuple(a.float() for a in args)  # the same values, FP32 kernel
     q = torch.eye(J, device="cuda", dtype=torch.bfloat16).expand(
@@ -523,16 +537,16 @@ def check_keypoint_attention_bf16(gen, flush) -> dict:
     nbytes = (2 * LOOP_BATCH * hw * (J + C1 + C2)
               + 4 * LOOP_BATCH * J * (C1 + C2))
     flops = LOOP_BATCH * J * hw * (2 * (C1 + C2) + 5)
-    # the operations priced at the inputs' type, bf16: the features are
-    # exact in bf16, and FP32 weights split in bf16 parts keep the
-    # products exact, so the tensor cores' rate applies (this kernel's
-    # FP32 FFMA would take flops / H100_FP32_FLOP_PER_S)
-    b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOP_PER_S)
+    # the kernel's route: the products on the bf16 tensor cores, three per
+    # product (the FP32 weight's three bf16 parts); the FP32 FFMA of the
+    # float32 kernel would take flops / H100_FP32_FLOP_PER_S
+    b_ms, b_by = bound(nbytes, 3 * flops, H100_BF16_FLOP_PER_S)
+    ops_ms = 3 * flops / H100_BF16_FLOP_PER_S * 1e3
     ffma_ms = flops / H100_FP32_FLOP_PER_S * 1e3
     fp32_ms = time_ms(lambda: keypoint_attention_fused(*f32), flush)
     row = dict(
         name="keypoint_attention_bf16", route="cuda",
-        source="gaitlab_torch/csrc/keypoint_attention.cu",
+        source="gaitlab_torch/csrc/keypoint_attention_bf16.cu",
         replaces="gaitlab/ops/attention_pallas.py:60",
         max_abs_err=err,
         ms=time_ms(lambda: keypoint_attention_fused(*args), flush),
@@ -540,9 +554,11 @@ def check_keypoint_attention_bf16(gen, flush) -> dict:
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, flush))
     log(f"[kernels] keypoint_attention bf16 at B={LOOP_BATCH}: "
         f"{row['ms']:.4f} ms against its bound {b_ms:.4f} ms ({b_by}, "
-        f"{nbytes / 1e6:.1f} MB; its FP32 FFMA alone would take "
-        f"{ffma_ms:.4f} ms); the FP32 kernel on the same values "
-        f"{fp32_ms:.4f} ms")
+        f"{nbytes / 1e6:.1f} MB; its operations, three bf16 products each, "
+        f"take {ops_ms:.4f} ms on the tensor cores, and would take "
+        f"{ffma_ms:.4f} ms as FP32 FFMA); the FP32 kernel on the same values "
+        f"{fp32_ms:.4f} ms; scaled_dot_product_attention in bf16 "
+        f"{row['library_ms']:.4f} ms")
     return row
 
 
@@ -633,6 +649,7 @@ def zeroed_counts():
     for fn in fns.values():
         fn.launches = fn.backwards = 0
     keypoint_attention_fused.launches_bf16 = 0
+    keypoint_attention_fused.copies_bf16 = 0
     return fns
 
 
@@ -3505,7 +3522,13 @@ def precision_modes(model, crops) -> tuple[dict, dict, dict]:
             fns = zeroed_counts()
             out = runner.forward_crops(crops)
             launches[f"precision_{tag}"] = counts = launch_counts(fns)
+            copies = fns["keypoint_attention"].copies_bf16
         errs.append(held(f"precision {tag}", seen, counts))
+        if copies:
+            # the head's bf16 tensors must reach the bf16 kernel as the
+            # NCHW views it reads without a copy
+            raise AssertionError(f"precision {tag}: B1 copied its bf16 "
+                                 f"inputs {copies} times")
         check_switches(tag, sw)
         live = runner._live()["model"]
         ms = events_ms(lambda: live.forward(crops))
@@ -3522,7 +3545,8 @@ def precision_modes(model, crops) -> tuple[dict, dict, dict]:
             f"MPJPE against float32 {mpjpe:.4f} mm (worst frame "
             f"{worst:.4f} mm), joint spread over frames {spread:.2f} mm: "
             + ("qualified" if mpjpe <= MPJPE_BUDGET_MM else "unqualified")
-            + f" against {MPJPE_BUDGET_MM} mm; launches {counts}")
+            + f" against {MPJPE_BUDGET_MM} mm; launches {counts}, B1 copies "
+            f"of bf16 inputs {copies}")
     # the host cost of the weights check, which each session (a track, a
     # forward_crops call) makes once when it opens
     n_tensors = (len(list(model.module.parameters()))
@@ -3755,7 +3779,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all(verbose=True)
-    log(f"[build] both kernels built and loaded in "
+    log(f"[build] {len(_build.SIGNATURES)} kernel libraries built and "
+        f"loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     from gaitlab_torch.pipeline import loader
 
@@ -3814,7 +3839,7 @@ def main() -> int:
     for r in rows:
         name = r["name"]
         if name == "keypoint_attention_bf16":
-            # B1's bf16 instantiation runs only on phase 15's paths; its
+            # B1's bf16 kernel runs only on phase 15's paths; its
             # calls are held with B1's there
             r["launches_by_path"] = {p: n[name]
                                      for p, n in prec_launches.items()}

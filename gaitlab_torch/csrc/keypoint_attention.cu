@@ -50,29 +50,12 @@
 // waves and the partials stay a few per cent of the bytes. Copies are 16
 // bytes wide where positions are contiguous and aligned (the head's NCHW
 // views), else 4 bytes.
-//
-// bf16 inputs (the runner's trunk_dtype="bfloat16", whose head hands the
-// pooling bf16 features and logits): the kernel is templated on the
-// input element type, and the softmax and the sums are the FP32 kernel's
-// on the converted values, with FP32 outputs, as gaitlab's wrapper
-// upcasts before its pallas_call. Where positions are contiguous and
-// aligned (the head's views), cp.async brings each tile's raw bf16, 16
-// bytes = 8 positions a copy, into a ring of two bf16 stages behind one
-// FP32 stage (the same 54 KB as the FP32 ring); once a tile has landed,
-// each thread converts the positions it copied into the FP32 stage. So
-// half the bytes cross from device memory and their latency stays hidden
-// as in the FP32 kernel. Other bf16 layouts load synchronously, one
-// element at a time, converting on the way. Bound at B = 128: 175.8 MB
-// of bf16 inputs and FP32 outputs, 0.0525 ms at 3.35 TB/s; the 3.7 GFLOP
-// on bf16 operands take a few microseconds on the tensor cores, so bytes
-// bind. This kernel does them as FP32 FFMA, which alone takes 0.056 ms:
-// past the bound, so reaching it needs the products on the tensor cores.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
+
+#include "attention_merge.cuh"
 
 namespace {
 
@@ -86,9 +69,7 @@ constexpr int kTile = 32;           // positions per stage
 constexpr int kStages = 2;          // stages of the cp.async ring
 constexpr int kMinBlocks = 4;       // blocks per SM (registers and smem)
 constexpr int kRowsAll = kChanTile + kJ;      // rows of a stage
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kStageFloats = kRowsAll * kTile;
-constexpr int kMergeThreads = 256;
 static_assert(kTile == 32, "one position per lane in the softmax step");
 
 template <int kWidth>
@@ -104,15 +85,6 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src,
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                  "l"(src), "r"(4 * n_valid));
   }
-}
-
-// 16 bytes to shared memory, `bytes` of them from src and the rest zero
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile(
-      "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(d),
-      "l"(src), "r"(bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -149,59 +121,25 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
 struct Tensors {
-  const T* feat;
+  const float* feat;
   long long fb, fp, fc;
   int c1;
-  const T* cam;
+  const float* cam;
   long long cb, cp, cc;
   int c2;
-  const T* hm;
+  const float* hm;
   long long hb, hp, hj;
 };
-
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// kWidth bf16 positions from src (contiguous when kWidth == 8, else one),
-// n_valid of them real and the rest zero, into the stage as FP32: dst and
-// dst2 take the two 16-byte groups of eight, dst alone one position
-template <int kWidth>
-__device__ __forceinline__ void load_bf16(float* dst, float* dst2,
-                                          const __nv_bfloat16* src,
-                                          int n_valid) {
-  if constexpr (kWidth == 8) {
-    float v[8];
-    if (n_valid == 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
-        v[2 * i] = f.x;
-        v[2 * i + 1] = f.y;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = i < n_valid ? to_float(src[i]) : 0.f;
-    }
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(dst2) = make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-    dst[0] = n_valid > 0 ? to_float(src[0]) : 0.f;
-  }
-}
 
 // grid (n_split, B, channel chunks). With gridDim.x == 1 the block writes
 // out1/out2; else ms_part[(split * B + b) * kJ + j] = (m, s), m the max of
 // the logits over the split and s the sum of exp(logit - m), and
 // acc_part[((split * B + b) * kJ + j) * (c1 + c2) + c] = the sums weighted
 // by those exponentials (not yet divided by s).
-template <typename T, int kWidth>
+template <int kWidth>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    attention_split_kernel(Tensors<T> x, float* __restrict__ out1,
+    attention_split_kernel(Tensors x, float* __restrict__ out1,
                            float* __restrict__ out2,
                            float2* __restrict__ ms_part,
                            float* __restrict__ acc_part, int hw,
@@ -213,16 +151,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int p_begin = split * split_len;
   const int p_end = min(hw, p_begin + split_len);
   const int n_tiles = (p_end - p_begin + kTile - 1) / kTile;
-  const T* feat_b = x.feat + b * x.fb;
-  const T* cam_b = x.cam + b * x.cb;
-  const T* hm_b = x.hm + b * x.hb;
+  const float* feat_b = x.feat + b * x.fb;
+  const float* cam_b = x.cam + b * x.cb;
+  const float* hm_b = x.hm + b * x.hb;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // each stage row's source (nullptr past C) and position stride, once
-  __shared__ const T* row_src[kRowsAll];
+  __shared__ const float* row_src[kRowsAll];
   __shared__ long long row_sp[kRowsAll];
   for (int row = tid; row < kRowsAll; row += kThreads) {
-    const T* src = nullptr;
+    const float* src = nullptr;
     long long sp = 0;
     if (row < kChanTile) {
       const int c = c0 + row;
@@ -258,66 +196,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     for (int k = 0; k < kPasses; ++k) {
       const int row = row0 + k * kRowStep;
       if (kPasses * kRowStep > kRowsAll && row >= kRowsAll) break;
-      const T* src = row_src[row];
+      const float* src = row_src[row];
       if (src == nullptr) continue;
-      src += kWidth > 1 ? p : p * row_sp[row];
+      src += kWidth == 4 ? p : p * row_sp[row];
       float* dst = st + (row < kChanTile ? feat_index(row, t_copy)
                                          : row * kTile + t_copy);
-      if constexpr (std::is_same_v<T, float>) {
-        cp_async<kWidth>(dst, n > 0 ? src : x.feat, n);
-      } else {
-        float* dst2 = st + (row < kChanTile ? feat_index(row, t_copy + 4)
-                                            : row * kTile + t_copy + 4);
-        load_bf16<kWidth>(dst, dst2, src, n);
-      }
+      cp_async<kWidth>(dst, n > 0 ? src : x.feat, n);
     }
   };
-  // bf16 in 16-byte copies: raw bf16 stages after one FP32 stage (module
-  // note)
-  constexpr bool kStaged = !std::is_same_v<T, float> && kWidth == 8;
-  constexpr int kRawStage = kRowsAll * kTile;  // elements of a raw stage
-  T* raw = reinterpret_cast<T*>(ring + kStageFloats);
-  auto copy_raw = [&](int tile) {
-    T* st = raw + (tile % kStages) * kRawStage;
-    const int p = p_begin + tile * kTile + t_copy;
-    const int n = min(max(p_end - p, 0), kWidth);
-#pragma unroll
-    for (int k = 0; k < kPasses; ++k) {
-      const int row = row0 + k * kRowStep;
-      if (kPasses * kRowStep > kRowsAll && row >= kRowsAll) break;
-      const T* src = row_src[row];
-      if (src == nullptr) continue;
-      cp_async16(st + row * kTile + t_copy, n > 0 ? src + p : x.feat,
-                 2 * n);
-    }
-  };
-  auto convert_raw = [&](int tile) {
-    if constexpr (kStaged) {
-      const T* st = raw + (tile % kStages) * kRawStage;
-#pragma unroll
-      for (int k = 0; k < kPasses; ++k) {
-        const int row = row0 + k * kRowStep;
-        if (kPasses * kRowStep > kRowsAll && row >= kRowsAll) break;
-        if (row_src[row] == nullptr) continue;
-        const bool feat = row < kChanTile;
-        load_bf16<8>(ring + (feat ? feat_index(row, t_copy)
-                                  : row * kTile + t_copy),
-                     ring + (feat ? feat_index(row, t_copy + 4)
-                                  : row * kTile + t_copy + 4),
-                     st + row * kTile + t_copy, 8);
-      }
-    }
-  };
-  if constexpr (kStaged) {
-    for (int t = 0; t < kStages; ++t) {
-      if (t < n_tiles) copy_raw(t);
-      cp_async_commit();
-    }
-  } else {
-    for (int t = 0; t < kStages - 1; ++t) {
-      if (t < n_tiles) load_tile(t);
-      cp_async_commit();
-    }
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) load_tile(t);
+    cp_async_commit();
   }
 
   float acc[kPartsPerWarp][kChanPerLane];
@@ -332,22 +221,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int j0 = warp * kPartsPerWarp;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
-    if constexpr (kStaged) {
-      cp_async_wait<kStages - 1>();  // this thread's copies of the tile
-      __syncthreads();               // the FP32 stage's last tile is done
-      convert_raw(tile);             // the positions this thread copied
-      if (tile + kStages < n_tiles) copy_raw(tile + kStages);
-      cp_async_commit();
-      __syncthreads();               // the FP32 stage holds this tile
-    } else {
-      cp_async_wait<kStages - 2>();  // this tile has landed
-      __syncthreads();               // for all threads; the previous is done
-      if (tile + kStages - 1 < n_tiles) load_tile(tile + kStages - 1);
-      cp_async_commit();
-    }
-    const int stage = kStaged ? 0 : tile % kStages;
-    const float* f_s = ring + stage * kStageFloats;
-    float* w_s = ring + stage * kStageFloats + kChanTile * kTile;
+    cp_async_wait<kStages - 2>();  // this tile has landed
+    __syncthreads();               // for all threads; the previous is done
+    if (tile + kStages - 1 < n_tiles) load_tile(tile + kStages - 1);
+    cp_async_commit();
+    const float* f_s = ring + (tile % kStages) * kStageFloats;
+    float* w_s = ring + (tile % kStages) * kStageFloats + kChanTile * kTile;
 
     // softmax step of this warp's parts, one position per lane: m is the
     // running max of the logits; the difference to it is taken before the
@@ -429,46 +308,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-// one thread per output element e = (b * kJ + j) * (c1 + c2) + c: the
-// splits' sums rescaled to their common max, added in split order
-__global__ void __launch_bounds__(kMergeThreads) attention_merge_kernel(
-    const float2* __restrict__ ms_part, const float* __restrict__ acc_part,
-    int n_split, long long n_rows, int c1, int c2, float* __restrict__ out1,
-    float* __restrict__ out2) {
-  const int c_all = c1 + c2;
-  const long long n_elems = n_rows * c_all;
-  const long long e = (long long)blockIdx.x * kMergeThreads + threadIdx.x;
-  if (e >= n_elems) return;
-  const long long row = e / c_all;  // b * kJ + j
-  const int c = (int)(e - row * c_all);
-  float mx = -INFINITY;
-  for (int s = 0; s < n_split; ++s) {
-    mx = fmaxf(mx, ms_part[s * n_rows + row].x);
-  }
-  float num = 0.f, den = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const float2 ms = ms_part[s * n_rows + row];
-    const float a = ms.x == -INFINITY ? 0.f : exp2f((ms.x - mx) * kLog2e);
-    num = fmaf(a, acc_part[s * n_elems + e], num);
-    den = fmaf(a, ms.y, den);
-  }
-  const float v = num / den;
-  if (c < c1) {
-    out1[row * c1 + c] = v;
-  } else {
-    out2[row * c2 + (c - c1)] = v;
-  }
-}
-
-template <typename T, int kWidth>
-int launch_split(const Tensors<T>& x, float* out1, float* out2, float2* ms,
+template <int kWidth>
+int launch_split(const Tensors& x, float* out1, float* out2, float2* ms,
                  float* acc, int n_batch, int hw, int n_split, int split_len,
                  int n_chunk, size_t smem, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      attention_split_kernel<T, kWidth>,
+      attention_split_kernel<kWidth>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attention_split_kernel<T, kWidth>
+  attention_split_kernel<kWidth>
       <<<dim3(n_split, n_batch, n_chunk), kThreads, smem, s>>>(
           x, out1, out2, ms, acc, hw, split_len);
   return (int)cudaGetLastError();
@@ -486,16 +334,14 @@ extern "C" {
 // addressable with one stride. Each split covers split_len positions (a
 // multiple of kTile) and channel chunks of kChanTile cover c1 + c2. Scratch
 // from the caller when n_split > 1: ms (n_split * B * kJ float2) and acc
-// (n_split * B * kJ * (c1 + c2) floats). The inputs are FP32 (bf16 == 0)
-// or bf16 (bf16 == 1); width 4 (FP32) or 8 (bf16) needs every position
+// (n_split * B * kJ * (c1 + c2) floats). width 4 needs every position
 // stride 1 and every other stride and pointer 16-byte aligned.
 int gaitlab_keypoint_attention(
-    const void* feat, long long fb, long long fp, long long fc, int c1,
-    const void* cam, long long cb, long long cp, long long cc, int c2,
-    const void* hm, long long hb, long long hp, long long hj, float* out1,
+    const float* feat, long long fb, long long fp, long long fc, int c1,
+    const float* cam, long long cb, long long cp, long long cc, int c2,
+    const float* hm, long long hb, long long hp, long long hj, float* out1,
     float* out2, void* ms, float* acc, int n_batch, int hw, int n_split,
-    int split_len, int n_chunk, int width, int bf16, int smem,
-    void* stream) {
+    int split_len, int n_chunk, int width, int smem, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int c_all = c1 + c2;
   const bool plan_ok =
@@ -503,39 +349,18 @@ int gaitlab_keypoint_attention(
       (long long)(n_split - 1) * split_len < hw &&
       (long long)n_chunk * kChanTile >= c_all &&
       (size_t)smem == (size_t)kStages * kStageFloats * sizeof(float) &&
-      (width == 1 || width == (bf16 ? 8 : 4)) &&
-      (n_split == 1 || (ms && acc));
+      (width == 1 || width == 4) && (n_split == 1 || (ms && acc));
   if (!plan_ok) return (int)cudaErrorInvalidValue;
+  const Tensors x{feat, fb, fp, fc, c1, cam, cb, cp, cc, c2, hm, hb, hp, hj};
   float2* ms2 = reinterpret_cast<float2*>(ms);
-  int err;
-  if (bf16) {
-    using B = __nv_bfloat16;
-    const Tensors<B> x{(const B*)feat, fb, fp, fc, c1, (const B*)cam, cb,
-                       cp, cc, c2, (const B*)hm, hb, hp, hj};
-    err = width == 8 ? launch_split<B, 8>(x, out1, out2, ms2, acc, n_batch,
-                                          hw, n_split, split_len, n_chunk,
-                                          smem, s)
-                     : launch_split<B, 1>(x, out1, out2, ms2, acc, n_batch,
-                                          hw, n_split, split_len, n_chunk,
-                                          smem, s);
-  } else {
-    const Tensors<float> x{(const float*)feat, fb, fp, fc, c1,
-                           (const float*)cam, cb, cp, cc, c2,
-                           (const float*)hm, hb, hp, hj};
-    err = width == 4 ? launch_split<float, 4>(x, out1, out2, ms2, acc,
-                                              n_batch, hw, n_split,
-                                              split_len, n_chunk, smem, s)
-                     : launch_split<float, 1>(x, out1, out2, ms2, acc,
-                                              n_batch, hw, n_split,
-                                              split_len, n_chunk, smem, s);
-  }
+  const int err =
+      width == 4 ? launch_split<4>(x, out1, out2, ms2, acc, n_batch, hw,
+                                   n_split, split_len, n_chunk, smem, s)
+                 : launch_split<1>(x, out1, out2, ms2, acc, n_batch, hw,
+                                   n_split, split_len, n_chunk, smem, s);
   if (err != 0 || n_split == 1) return err;
-  const long long n_rows = (long long)n_batch * kJ;
-  const unsigned blocks =
-      (unsigned)((n_rows * c_all + kMergeThreads - 1) / kMergeThreads);
-  attention_merge_kernel<<<blocks, kMergeThreads, 0, s>>>(
-      ms2, acc, n_split, n_rows, c1, c2, out1, out2);
-  return (int)cudaGetLastError();
+  return launch_merge(ms2, acc, n_split, (long long)n_batch * kJ, c1, c2,
+                      out1, out2, s);
 }
 
 const char* gaitlab_cuda_error_string(int code) {

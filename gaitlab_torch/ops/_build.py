@@ -3,13 +3,15 @@
 Each `csrc/*.cu` file has a plain C interface. At first use every source
 is compiled by its own `nvcc` process, all started together, into a shared
 library under `build/gaitlab_torch_ext/` (listed in .gitignore), named by
-the hash of the source so that an edited kernel is rebuilt; the libraries
+the hash of the source and of the headers the sources share
+(`csrc/*.cuh`) so that an edited kernel is rebuilt; the libraries
 are then loaded with ctypes. Nothing is built when the module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import os.path as osp
@@ -32,7 +34,11 @@ SIGNATURES = {
     "keypoint_attention": ("gaitlab_keypoint_attention",
                            (_P, _L, _L, _L, _I, _P, _L, _L, _L, _I,
                             _P, _L, _L, _L, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _P)),
+                            _I, _I, _I, _I, _I, _I, _I, _P)),
+    "keypoint_attention_bf16": ("gaitlab_keypoint_attention_bf16",
+                                (_P, _L, _L, _I, _P, _L, _L, _I, _P, _L, _L,
+                                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _P)),
 }
 
 _libs: dict = {}
@@ -49,11 +55,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[str, str]:
+    """The source of kernel `name` and its library, named by the hash of
+    the flags, the source and the shared headers (csrc/*.cuh)."""
     src = osp.join(SRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:12]
-    return src, osp.join(BUILD_DIR, f"{name}-{tag}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(glob.glob(osp.join(SRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, osp.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
 def build_all(verbose: bool = False) -> dict:

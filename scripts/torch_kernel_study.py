@@ -3,6 +3,7 @@
 
     python3 scripts/torch_kernel_study.py ab TREE [TREE ...]
     python3 scripts/torch_kernel_study.py ablate
+    python3 scripts/torch_kernel_study.py ablate_bf16
     python3 scripts/torch_kernel_study.py gait
     python3 scripts/torch_kernel_study.py queue
     python3 scripts/torch_kernel_study.py serve
@@ -17,6 +18,17 @@ variants of this checkout's blendshapes kernel with one part taken out
 show where its time goes; a variant's output is not checked. Times are
 chip_smoke.py's: median device time of one call, CUDA events, L2 flushed
 before each call. Each line of output is one JSON object.
+
+`ablate_bf16` does the same for B1 on bf16 inputs
+(csrc/keypoint_attention_bf16.cu) at B = 128 on the head's views, twice
+in turns: the TMA traffic alone (each tile handed back on arrival, with
+and without the first pass over the logits), the softmax step without the
+wgmmas, no L2 eviction hints, a ring of 6 stages, and part 0's sums
+chained over the whole frame on the tensor cores (where the kernel adds
+each tile's with an FP32 add), with each variant's error against float64
+(meaningless for the first three); then, on the same values, the FP32
+kernel, one scaled_dot_product_attention in bf16, and a copy of the
+features tensor as a yardstick of the card's streaming rate.
 
 `gait` studies MAX-GRNet's gait corrector at full width (random weights
 from seed 0, random crops): at buckets 256 and 450 the model with and
@@ -123,14 +135,77 @@ def ab(trees: list) -> None:
 
 # blendshapes variants: name -> (text in csrc/blendshapes.cu, replacement)
 ABLATIONS = {
-    "no_mma": ("""          mma(acc[m][n], as, bb[n][0], bb[n][1]);
+    "no_mma": [("""          mma(acc[m][n], as, bb[n][0], bb[n][1]);
           mma(acc[m][n], ab, bs[n][0], bs[n][1]);
           mma(acc[m][n], ab, bb[n][0], bb[n][1]);""",
-               "          acc[m][n][0] += __uint_as_float("
-               "ab[0] ^ bb[n][0] ^ as[1] ^ bs[n][1]);"),
-    "no_stores": ("  for (int b = warp; b < nb; b += kThreads / 32) {",
-                  "  for (int b = warp; b < 0; b += kThreads / 32) {"),
+                "          acc[m][n][0] += __uint_as_float("
+                "ab[0] ^ bb[n][0] ^ as[1] ^ bs[n][1]);")],
+    "no_stores": [("  for (int b = warp; b < nb; b += kThreads / 32) {",
+                   "  for (int b = warp; b < 0; b += kThreads / 32) {")],
 }
+
+# keypoint_attention_bf16 variants: name -> [(text, replacement)]
+_BF16_TILE_WAIT = """    mbar_wait(&full[st], (it / kStages) & 1);
+    uint8_t* stage = base + st * kStageBytes;
+"""
+_BF16_STREAM = (_BF16_TILE_WAIT, _BF16_TILE_WAIT.replace(
+    "    uint8_t* stage",
+    "    if (t >= 0) {\n      mbar_arrive(&empty[st]);\n      ++it;\n"
+    "      return;\n    }\n    uint8_t* stage"))
+BF16_ABLATIONS = {
+    "stream_only": [_BF16_STREAM],
+    "stream_no_scan": [_BF16_STREAM, (
+        "const int n_scan = (n_tiles + kScan - 1) / kScan;",
+        "const int n_scan = 0;")],
+    "no_wgmma": [("      if (mb < n_mb) {\n        const uint64_t ad",
+                  "      if (mb < n_mb && t < 0) {\n        const uint64_t ad")],
+    "no_l2_hints": [("L2::evict_first.b64", "L2::evict_unchanged.b64"),
+                    ("L2::evict_last.b64", "L2::evict_unchanged.b64")],
+    "stages6": [("constexpr int kStages = 4; ", "constexpr int kStages = 6; ")],
+    "chained_part0": [
+        ("wgmma_m64n24k16(cur[mb], ad + 2 * k, w0 + 2 * k, k > 0);",
+         "wgmma_m64n24k16(sum0[mb], ad + 2 * k, w0 + 2 * k, 1);"),
+        ("sum0[mb][i] += done[mb][i];", "(void)done[mb][i];"),
+        ("      fence_operands(cur[mb]);\n",
+         "      fence_operands(cur[mb]);\n      fence_operands(sum0[mb]);\n"),
+        ("    fence_operands(fresh[1][mb]);\n",
+         "    fence_operands(fresh[1][mb]);\n    fence_operands(sum0[mb]);\n")],
+}
+
+
+def variant_libs(kernel: str, ablations: dict) -> dict:
+    """{name: loaded library} of csrc/<kernel>.cu as built ("full") and
+    of each ablation, its replacements applied, built with the build's
+    flags (one nvcc each, in parallel) into the build directory."""
+    from gaitlab_torch.ops import _build
+
+    libs = {"full": _build.build_all()[kernel]}
+    src = open(osp.join(_build.SRC_DIR, f"{kernel}.cu")).read()
+    out_dir = osp.join(_build.BUILD_DIR, "study")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, subs in ablations.items():
+        text = src
+        for old, new in subs:
+            assert text.count(old) >= 1, (name, old)
+            text = text.replace(old, new)
+        cu = osp.join(out_dir, f"{kernel}_{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.SRC_DIR, "-o",
+             cu[:-3] + ".so", cu])
+    fn, argtypes = _build.SIGNATURES[kernel]
+    for name, proc in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for {name}")
+        lib = ctypes.CDLL(osp.join(out_dir, f"{kernel}_{name}.so"))
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+        lib.gaitlab_cuda_error_string.argtypes = (ctypes.c_int,)
+        lib.gaitlab_cuda_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
 
 
 def ablate() -> None:
@@ -141,30 +216,7 @@ def ablate() -> None:
     from gaitlab_torch.ops import _build
     from gaitlab_torch.ops import blendshapes as bsm
 
-    libs = dict(_build.build_all())
-    src = open(osp.join(_build.SRC_DIR, "blendshapes.cu")).read()
-    out_dir = osp.join(_build.BUILD_DIR, "study")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, (old, new) in ABLATIONS.items():
-        assert old in src, name
-        cu = osp.join(out_dir, f"blendshapes_{name}.cu")
-        with open(cu, "w") as f:
-            f.write(src.replace(old, new))
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", cu[:-3] + ".so", cu])
-    variants = {"full": libs["blendshapes"]}
-    fn, argtypes = _build.SIGNATURES["blendshapes"]
-    for name, proc in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for {name}")
-        lib = ctypes.CDLL(osp.join(out_dir, f"blendshapes_{name}.so"))
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-        lib.gaitlab_cuda_error_string.argtypes = (ctypes.c_int,)
-        lib.gaitlab_cuda_error_string.restype = ctypes.c_char_p
-        variants[name] = lib
-
+    variants = variant_libs("blendshapes", ABLATIONS)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bs, _ = inputs(gen)
     flush = torch.empty(256 * 2**20 // 4, device="cuda")
@@ -176,13 +228,64 @@ def ablate() -> None:
             print(json.dumps({"card": card, "variant": name, "batch": B,
                               "pose": 207, "b2_ms": ms}), flush=True)
     finally:
-        _build._libs["blendshapes"] = libs["blendshapes"]
+        _build._libs["blendshapes"] = variants["full"]
     vt, sh, po, be, pf = bs
     for p in (16, 112):  # fewer pose coefficients: the cost per chunk of K
         args = (vt, sh, po[:p].contiguous(), be, pf[:, :p].contiguous())
         ms = time_ms(lambda: bsm.blendshapes(*args), flush)
         print(json.dumps({"card": card, "variant": "full", "batch": B,
                           "pose": p, "b2_ms": ms}), flush=True)
+
+
+def ablate_bf16() -> None:
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import card_line, time_ms
+    from gaitlab_torch.ops import _build
+    from gaitlab_torch.ops import keypoint_attention as ka
+
+    variants = variant_libs("keypoint_attention_bf16", BF16_ABLATIONS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    f = torch.randn(B, 128, 56, 56, device="cuda", generator=gen).relu().to(bf)
+    c = torch.randn(B, 64, 56, 56, device="cuda", generator=gen).to(bf)
+    hm = (torch.randn(B, 25, 56, 56, device="cuda", generator=gen) * 3).to(bf)
+    at = (f.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1),
+          hm[:, 1:].permute(0, 2, 3, 1))
+    ref64 = ka.keypoint_attention_plain(*(a.double() for a in at))
+    flush = torch.empty(256 * 2**20 // 4, device="cuda")
+    card = card_line()
+    stages, smem = ka.BF16_STAGES, ka.BF16_SMEM
+    try:
+        for name in [*variants] * 2:
+            _build._libs["keypoint_attention_bf16"] = variants[name]
+            # a ring of another depth: the plan's shared memory with it
+            n = 6 if name == "stages6" else stages
+            ka.BF16_SMEM = smem + (n - stages) * (ka.BF16_STAGE_BYTES + 16)
+            got = ka.keypoint_attention_fused(*at)
+            err = max((g - r).abs().max().item() for g, r in zip(got, ref64))
+            ms = time_ms(lambda: ka.keypoint_attention_fused(*at), flush)
+            print(json.dumps({"card": card, "variant": name, "batch": B,
+                              "b1_bf16_ms": ms, "err_f64": err}), flush=True)
+    finally:
+        _build._libs["keypoint_attention_bf16"] = variants["full"]
+        ka.BF16_SMEM = smem
+    q = torch.eye(24, device="cuda", dtype=bf).expand(B, 1, 24, 24).contiguous()
+    k = hm[:, 1:].reshape(B, 1, 24, -1).transpose(2, 3).contiguous()
+    v = torch.cat([f, c], 1).reshape(B, 1, 192, -1).transpose(2, 3).contiguous()
+    f32 = tuple(a.float() for a in at)
+    copy = torch.empty_like(f)
+    copy_ms = time_ms(lambda: copy.copy_(f), flush)
+    print(json.dumps({
+        "card": card, "batch": B,
+        "fp32_kernel_ms": time_ms(lambda: ka.keypoint_attention_fused(*f32),
+                                  flush),
+        "sdpa_bf16_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), flush),
+        "copy_ms": copy_ms, "copy_bytes": 2 * 2 * f.numel(),
+        "copy_tb_per_s": 4 * f.numel() / copy_ms / 1e9}), flush=True)
 
 
 def gait() -> None:
@@ -519,6 +622,8 @@ def main() -> int:
         time_tree(args[0])
     elif cmd == "ablate":
         ablate()
+    elif cmd == "ablate_bf16":
+        ablate_bf16()
     elif cmd == "gait":
         gait()
     elif cmd == "queue":

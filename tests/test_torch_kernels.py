@@ -8,7 +8,8 @@ emulations of the kernels' arithmetic (keypoint attention's split online
 softmax and merge; blendshapes' 3xTF32 products) match gaitlab. On a card
 (tests marked `gpu`, skipped without one): each CUDA kernel against its
 plain version at the main path's shapes (keypoint attention on float32
-and on bf16 inputs). Only the emulation tests import
+and on bf16 inputs; tests/test_torch_attention_bf16.py holds the bf16
+kernel's own tests). Only the emulation tests import
 gaitlab (and so JAX), inside the test, so the card's machine, which has no
 JAX, runs the card tests without the repo's conftest:
 
@@ -370,11 +371,12 @@ def test_keypoint_attention_kernel_nhwc_on_card(cuda, h, w):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [1, 37, 128])
+@pytest.mark.parametrize("b", [1, 37, 128, 450])
 def test_keypoint_attention_kernel_on_bf16_on_card(cuda, b):
-    """bf16 NCHW views (16-byte loads of 8 positions) and contiguous bf16
-    NHWC tensors with a ragged HW (one element at a time): float32
-    outputs, against the plain version on the upcast inputs."""
+    """bf16 NCHW views, which the bf16 kernel's TMA maps read as they lie,
+    and contiguous bf16 NHWC tensors with a ragged HW, which the wrapper
+    first copies into the head's layout (once per call): float32 outputs,
+    against the plain version on the upcast inputs."""
     g = torch.Generator(device=cuda).manual_seed(b)
     bf = torch.bfloat16
     f = torch.randn(b, 128, 56, 56, device=cuda, generator=g).relu().to(bf)
@@ -382,12 +384,15 @@ def test_keypoint_attention_kernel_on_bf16_on_card(cuda, b):
     hm = (torch.randn(b, 25, 56, 56, device=cuda, generator=g) * 3).to(bf)
     nhwc = tuple(torch.randn(2, 7, 9, ch, device=cuda, generator=g).to(bf)
                  for ch in (256, 64, 24))
-    for args in ((f.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1),
-                  hm[:, 1:].permute(0, 2, 3, 1)), nhwc):
-        n = keypoint_attention_fused.launches_bf16
+    for args, copies in (((f.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1),
+                           hm[:, 1:].permute(0, 2, 3, 1)), 0), (nhwc, 1)):
+        n = (keypoint_attention_fused.launches_bf16,
+             keypoint_attention_fused.copies_bf16)
         got = keypoint_attention_fused(*args)
         torch.cuda.synchronize()
-        assert keypoint_attention_fused.launches_bf16 == n + 1
+        assert (keypoint_attention_fused.launches_bf16,
+                keypoint_attention_fused.copies_bf16) == (n[0] + 1,
+                                                          n[1] + copies)
         want = keypoint_attention_plain(*args)
         for a, w in zip(got, want):
             assert a.dtype == torch.float32
