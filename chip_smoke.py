@@ -169,6 +169,24 @@ Phases, each of which exits non-zero on failure:
              SMPL, seen at the kernels' calls inside them) run through
              `serve.load_runner`, each within 1e-4 m of the runner at
              "high" on the same inputs
+ 16. backbone gaitlab's backbone variants with phase 3's checkpoint on
+             phase 15's 128 crops, as scripts/torch_precision_study.py's
+             modes: (a) the exact ones, space-to-depth packing of the
+             32-channel branches ("float32+pack"), the s2d stem
+             ("float32+s2d") and both, against the plain float32
+             backbone with TF32 off: the features' max |d| relative to
+             max(1, max|f|), kp_3d and verts within PAR_M_ATOL; (b) the
+             inexact ones, "high" with layer1's activations stored as
+             bf16 ("high+l1act16"), "bf16trunk+f32stem", and "high" with
+             packing or the s2d stem: kp_3d MPJPE against float32,
+             qualified or not, every output finite; (c) frames/s of each
+             (CUDA events) beside plain "float32" and "high", and the
+             backbone's region times at "float32" from stop_after; (d)
+             hrnet_w32 with the three other heads and hrnet_w48, random
+             weights with calibrated BN, card against CPU on 2 crops
+             within 1e-3 of max(1, max|cpu|); (e) every variant's run
+             launches B1 and B2 (B1 on bf16 inputs, without a copy, under
+             the bf16 trunk), each call held against its plain version
 Two lines before the last list every kernel as JSON: launches_by_path
 holds the launches of each main path, phase 6's `--smooth` demo
 ("demo_smooth"), phase 8's two-pass `analyze_video` ("api_gait"), phase
@@ -180,17 +198,19 @@ phase 12's HMR forward ("hmr"), phase 13's first `cli.train` run
 its data-parallel train steps ("train_dp"), and phase 15's mode runs
 ("precision_float32", "_high", "_default", "_bf16"), MAX-GRNet at
 "high" ("precision_gait_high") and entry points ("demo_high",
-"api_high", "batchgen_high", "serve_high"), each counted from 0 just
-before its run; B1 on bf16 inputs, its own kernel
+"api_high", "batchgen_high", "serve_high"), and phase 16's variants
+("backbone_pack", "_s2d", "_pack_s2d", "_l1act16", "_f32stem"), each
+counted from 0 just before its run; B1 on bf16 inputs, its own kernel
 (csrc/keypoint_attention_bf16.cu), is a row of its own
-("keypoint_attention_bf16", phase 15's paths, where the bf16 trunk's
-head must hand it views it reads without a copy), and B1's row counts
-its float32 launches; launches is their sum; max_abs_err is the largest
-over phases 2, 6, 8, 10, 11, 12, 13 (13's backwards included), 14 and 15; fwd_bwd_ms
+("keypoint_attention_bf16", phase 15's and 16's paths, where the bf16
+trunk's head must hand it views it reads without a copy), and B1's row
+counts its float32 launches; launches is their sum; max_abs_err is the
+largest over phases 2, 6, 8, 10, 11, 12, 13 (13's backwards included),
+14, 15 and 16; fwd_bwd_ms
 holds phase 13's forward + backward timings. Kernel calls are seen at the ops' CUDA implementations, so
 calls from inside a loaded torch.export program are counted and checked
-too. The line before the last holds the card's name and power limit, and the
-last line is
+too. The smoke's wall time is printed to stderr. The line before the
+last holds the card's name and power limit, and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX or of the gaitlab package.
 """
@@ -311,6 +331,25 @@ MPJPE_BUDGET_MM = 0.5
 # an entry point at "high" against the runner at "high" on the same inputs:
 # the same ops, metres
 ENTRY_ATOL = 1e-4
+# phase 16: the backbone's variants as the study's modes (mode, what it is
+# held to, its path in the kernels line), each at bucket PREC_BATCH on
+# phase 15's crops; "exact" variants compute the same products as the
+# plain float32 backbone in another order (kp_3d, verts within
+# PAR_M_ATOL), "mpjpe" ones are rounded otherwise (MPJPE against float32)
+BB_MODES = (("float32", None, None), ("high", "mpjpe", None),
+            ("float32+pack", "exact", "backbone_pack"),
+            ("float32+s2d", "exact", "backbone_s2d"),
+            ("float32+pack+s2d", "exact", "backbone_pack_s2d"),
+            ("high+pack", "mpjpe", None), ("high+s2d", "mpjpe", None),
+            ("high+l1act16", "mpjpe", "backbone_l1act16"),
+            ("bf16trunk+f32stem", "mpjpe", "backbone_f32stem"))
+# the other heads and W48 at full width, card against CPU: ~100 fp32 convs
+# summed in two libraries' orders; max|card - cpu| <= BB_CPU_RTOL x max(1,
+# max|cpu|)
+BB_HEADS = (("hrnet_w32", True, True), ("hrnet_w32", False, False),
+            ("hrnet_w32", True, False), ("hrnet_w48", False, True))
+BB_CPU_CROPS = 2
+BB_CPU_RTOL = 1e-3
 
 
 def log(*a):
@@ -3766,6 +3805,163 @@ def precision_phase(vid: str, trackfile: str, ckpt: str, workdir: str
                       for k, v in errs.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the backbone's variants
+# ---------------------------------------------------------------------------
+
+def study_modules():
+    """scripts/torch_precision_study.py (the modes' grammar and views) and
+    scripts/torch_stage_timing.py (region times), imported from the
+    checkout."""
+    import importlib
+
+    scripts = osp.join(osp.dirname(osp.abspath(__file__)), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return (importlib.import_module("torch_precision_study"),
+            importlib.import_module("torch_stage_timing"))
+
+
+def backbone_variants(model, crops) -> tuple[dict, dict]:
+    """Each of BB_MODES at bucket PREC_BATCH on phase 15's crops: every
+    kernel call held, B1 and B2 launched (B1 on bf16 without a copy under
+    the bf16 trunk), frames/s (CUDA events); the exact variants' features
+    against the plain backbone's, kp_3d and verts within PAR_M_ATOL; the
+    others' kp_3d MPJPE against float32, qualified or not."""
+    import torch
+
+    study, _ = study_modules()
+    x = crops.permute(0, 3, 1, 2).contiguous()
+    launches, errs, res = {}, [], {}
+    with torch.inference_mode():
+        feats0 = model.module.backbone(x)
+    for mode, ref, path in BB_MODES:
+        run = study.at_mode(model, mode)
+        with kernel_spies(check=True) as seen:
+            fns = zeroed_counts()
+            out = run.forward(crops)[0]
+            counts = launch_counts(fns)
+            copies = fns["keypoint_attention"].copies_bf16
+        errs.append(held(f"backbone {mode}", seen, counts))
+        if path:
+            launches[path] = counts
+        b1 = counts["keypoint_attention" + ("_bf16" if "bf16" in mode
+                                            else "")]
+        if not (b1 and counts["blendshapes"]) or copies:
+            raise AssertionError(f"backbone {mode}: launches {counts}, B1 "
+                                 f"copies of bf16 inputs {copies}")
+        kp, verts = out["kp_3d"][0].float(), out["verts"][0].float()
+        ms = events_ms(lambda: run.forward(crops))
+        res[mode] = dict(kp=kp, verts=verts, ms=ms)
+        line = (f"[backbone] {mode}: {ms:.2f} ms/batch of {PREC_BATCH} = "
+                f"{PREC_BATCH / ms * 1e3:.1f} frames/s; launches {counts}")
+        if ref == "exact":
+            with torch.inference_mode():
+                feats = run.module.backbone(x)
+            rel = ((feats - feats0).abs().max()
+                   / max(1.0, feats0.abs().max().item())).item()
+            d = {k: (res[mode][k] - res["float32"][k]).abs().max().item()
+                 for k in ("kp", "verts")}
+            line += (f"; features max|d| / max(1, max|f|) {rel:.3e}, kp_3d "
+                     f"{d['kp']:.3e} m, verts {d['verts']:.3e} m (bound "
+                     f"{PAR_M_ATOL:g} m)")
+            if not max(d.values()) <= PAR_M_ATOL:
+                raise AssertionError(f"backbone {mode}: {d} against the "
+                                     f"plain float32 path")
+        elif ref == "mpjpe":
+            finite = all(torch.isfinite(v).all().item()
+                         for v in out.values() if torch.is_tensor(v))
+            mpjpe, worst, spread = joint_stats(
+                kp.cpu().numpy(), res["float32"]["kp"].cpu().numpy())
+            line += (f"; kp_3d MPJPE against float32 {mpjpe:.4f} mm (worst "
+                     f"frame {worst:.4f} mm, spread {spread:.2f} mm): "
+                     + ("qualified" if mpjpe <= MPJPE_BUDGET_MM
+                        else "unqualified") + f" against {MPJPE_BUDGET_MM} "
+                     f"mm; every output finite: {finite}")
+            if not finite:
+                raise AssertionError(f"backbone {mode}: non-finite outputs")
+        log(line)
+        del run
+    return launches, {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+def backbone_regions(model, crops) -> None:
+    """stop_after at each region boundary at "float32": cumulative and
+    per-region device ms (CUDA events), the head and SMPL alone."""
+    _, stage_timing = study_modules()
+    times = stage_timing.region_times(model, crops, "float32")
+    log("[backbone] regions at float32, batch "
+        f"{crops.shape[0]}, ms (cumulative / own): " + ", ".join(
+            f"{name} {times[stop or 'backbone']:.3f} / {own:.3f}"
+            for stop, (name, own) in zip(
+                stage_timing.STOPS, stage_timing.deltas(times).items()))
+        + f"; head {times['head']:.3f}, smpl {times['smpl']:.3f}")
+
+
+def backbone_heads(crops) -> None:
+    """hrnet_w32 with the three other heads and hrnet_w48, random weights
+    from SEED with BN statistics from a calibration pass over 8 crops on
+    the card, card against CPU on BB_CPU_CROPS crops."""
+    import torch
+
+    from gaitlab_torch.nn import hrnet
+    from gaitlab_torch.training import _batch_norms, _calibrate
+
+    x = crops[:8].permute(0, 3, 1, 2).contiguous()
+    for factory, downsample, use_conv in BB_HEADS:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            net = getattr(hrnet, factory)(downsample, use_conv).eval()
+        net = net.cuda()
+        _calibrate(_batch_norms(net), lambda: net(x))
+        with torch.inference_mode():
+            on_card = net(x[:BB_CPU_CROPS]).cpu()
+        net.cpu()
+        with torch.inference_mode():
+            host = net(x[:BB_CPU_CROPS].cpu())
+        err = (on_card - host).abs().max().item()
+        scale = max(1.0, host.abs().max().item())
+        log(f"[backbone] {factory}(downsample={downsample}, use_conv="
+            f"{use_conv}) card against CPU on {BB_CPU_CROPS} crops: "
+            f"{tuple(on_card.shape)}, max abs {err:.3e}, max(1, max|cpu|) "
+            f"{scale:.3g} (bound {BB_CPU_RTOL:g} x that)")
+        if not (on_card.shape == host.shape
+                and err <= BB_CPU_RTOL * scale):
+            raise AssertionError(f"{factory} {downsample, use_conv}: card "
+                                 f"and CPU disagree ({err:.3e})")
+        del net
+
+
+def backbone_phase(trackfile: str, ckpt: str, workdir: str
+                   ) -> tuple[dict, dict]:
+    """Phase 16. Returns the launches of each variant's path and each
+    kernel's largest checked error."""
+    import numpy as np
+    import torch
+
+    from gaitlab_torch.cli.demo import build_model, load_pickle
+    from gaitlab_torch.pipeline import video
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    t0 = time.perf_counter()
+    # the timings start from an empty allocator cache, whatever the
+    # earlier phases left in it
+    torch.cuda.empty_cache()
+    model = build_model(ckpt)
+    paths = video.list_image_files(osp.join(workdir, "calib"))
+    track = load_pickle(trackfile)[0]
+    crops = GRNetRunner(model).crop_track(
+        [paths[i] for i in track["frames"][:PREC_BATCH]],
+        np.asarray(track["bbox"][:PREC_BATCH], np.float32))
+    launches, errs = backbone_variants(model, crops)
+    backbone_regions(model, crops)
+    del model
+    torch.cuda.empty_cache()
+    backbone_heads(crops)
+    log(f"[backbone] phase 16 took {time.perf_counter() - t0:.1f} s")
+    return launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -3774,6 +3970,7 @@ def main() -> int:
         return 1
     from gaitlab_torch.ops import _build
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -3830,21 +4027,24 @@ def main() -> int:
             parallel_phase(vid, trackfile, ckpt, workdir)
         prec_launches, prec_errs = precision_phase(vid, trackfile, ckpt,
                                                    workdir)
+        bb_launches, bb_errs = backbone_phase(trackfile, ckpt, workdir)
     paths = {"demo_smooth": launches, "api_gait": gait_launches,
              "demo_render": render_launches, "batchgen": bg_launches,
              "serve_run": serve_launches, "hmr": hmr_launches,
              "train": train_launches, "train_gait": train_gait_launches,
              "parallel_dp": dp_launches, "parallel_pp": pp_launches,
-             "train_dp": train_dp_launches, **prec_launches}
+             "train_dp": train_dp_launches, **prec_launches, **bb_launches}
     for r in rows:
         name = r["name"]
         if name == "keypoint_attention_bf16":
-            # B1's bf16 kernel runs only on phase 15's paths; its
+            # B1's bf16 kernel runs only on phase 15's and 16's paths; its
             # calls are held with B1's there
-            r["launches_by_path"] = {p: n[name]
-                                     for p, n in prec_launches.items()}
+            r["launches_by_path"] = {
+                p: n[name] for p, n in {**prec_launches,
+                                        **bb_launches}.items()}
             r["max_abs_err"] = max(r["max_abs_err"],
-                                   prec_errs["keypoint_attention"])
+                                   prec_errs["keypoint_attention"],
+                                   bb_errs["keypoint_attention"])
             r["fwd_bwd_ms"] = None
         else:
             r["launches_by_path"] = {p: n[name] for p, n in paths.items()}
@@ -3852,11 +4052,12 @@ def main() -> int:
                                    gait_errs[name], bg_errs[name],
                                    serve_errs[name], hmr_errs[name],
                                    train_errs[name], par_errs[name],
-                                   prec_errs[name])
+                                   prec_errs[name], bb_errs[name])
             r["fwd_bwd_ms"] = bwd_times[name]
         r["launches"] = sum(r["launches_by_path"].values())
     if not prec_launches["precision_bf16"]["keypoint_attention_bf16"]:
         raise AssertionError("the bf16 path never launched B1 on bf16")
+    log(f"[smoke] wall {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -52,7 +53,13 @@ class GRNetCore(nn.Module):
     is gaitlab's enclosing matmul precision (float32 here unless
     `with_precision` says otherwise); `head_precision` (None: inherit),
     `backbone_region_precision` and `backbone_resize_precision` are
-    gaitlab's GRNetCore fields of the same names."""
+    gaitlab's GRNetCore fields of the same names.
+
+    The backbone's variants (nn/hrnet.py) are gaitlab's fields
+    `pack_low_channel`, `backbone_cast_after`, `backbone_act_store` and
+    `stem_s2d`, kept in the backbone's cfg: a view at other modes
+    (`with_precision`), a copy and a replica keep them, and
+    `with_backbone` makes a view with others."""
 
     def __init__(self, num_joints: int = 24, num_input_features: int = 480,
                  num_features_pare: int = 128, num_features_smpl: int = 64,
@@ -64,15 +71,21 @@ class GRNetCore(nn.Module):
                  freeze_backbone: bool = True,
                  head_precision: Optional[str] = None,
                  backbone_region_precision: tuple = (),
-                 backbone_resize_precision: str = "highest"):
+                 backbone_resize_precision: str = "highest",
+                 pack_low_channel: int = 0, backbone_cast_after: tuple = (),
+                 backbone_act_store: tuple = (), stem_s2d: bool = False):
         super().__init__()
         self.use_gait_feat = use_gait_feat
         self.freeze_backbone = freeze_backbone
         self.precision = "float32"
         self.head_precision = head_precision
-        self.backbone = PoseHighResolutionNet(
-            HRNetCfg.w(backbone_width, backbone_modules, backbone_blocks,
-                       backbone_region_precision, backbone_resize_precision))
+        self.backbone = PoseHighResolutionNet(HRNetCfg.w(
+            backbone_width, pack_low_channel=pack_low_channel,
+            region_precision=backbone_region_precision,
+            cast_after=backbone_cast_after, act_store=backbone_act_store,
+            stem_s2d=stem_s2d, modules=backbone_modules,
+            blocks=backbone_blocks,
+            resize_precision=backbone_resize_precision))
         self.head = PareHead(num_joints, num_input_features,
                              num_features_pare, num_features_smpl)
         if head_precision is not None:
@@ -100,16 +113,31 @@ class GRNetCore(nn.Module):
         backbone and head are shallow copies too, sharing every parameter,
         buffer and deeper submodule with this one, so that weights loaded
         into either are the other's."""
+        core = self.with_backbone(region_precision=region_precision,
+                                  resize_precision=resize_precision)
+        core.backbone.precision = check_mode(precision)
+        head = copy.copy(self.head)
+        head.precision = check_mode(head_precision or precision)
+        core._modules["head"] = head
+        core.precision, core.head_precision = precision, head_precision
+        return core
+
+    def with_backbone(self, **fields) -> "GRNetCore":
+        """This trunk with other backbone cfg fields (HRNetCfg's
+        pack_low_channel, cast_after, act_store, stem_s2d, region and
+        resize precision): a shallow copy whose backbone is a shallow copy
+        too, sharing every parameter, buffer and deeper submodule. Fields
+        that shape the parameters (width, the heads, the stages) raise."""
+        shaped = {"width", "downsample", "use_conv", "stage2", "stage3",
+                  "stage4"} & set(fields)
+        if shaped:
+            raise ValueError(f"with_backbone: {sorted(shaped)} shape the "
+                             "parameters")
         core = copy.copy(self)
         core._modules = dict(self._modules)
         backbone = copy.copy(self.backbone)
-        backbone.cfg = self.backbone.cfg.at_precision(region_precision,
-                                                      resize_precision)
-        backbone.precision = check_mode(precision)
-        head = copy.copy(self.head)
-        head.precision = check_mode(head_precision or precision)
-        core._modules["backbone"], core._modules["head"] = backbone, head
-        core.precision, core.head_precision = precision, head_precision
+        backbone.cfg = dataclasses.replace(self.backbone.cfg, **fields)
+        core._modules["backbone"] = backbone
         return core
 
     def train(self, mode: bool = True) -> "GRNetCore":

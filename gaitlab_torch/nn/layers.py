@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gaitlab_torch.device import held_math_mode, math_mode
+from gaitlab_torch.device import constant, held_math_mode, math_mode
 from gaitlab_torch.ops.keypoint_attention import keypoint_attention  # noqa: F401
 
 BN_EPS = 1e-5  # torch BatchNorm2d default
@@ -110,6 +110,43 @@ def _passes(op, x: torch.Tensor, k: torch.Tensor, mode) -> torch.Tensor:
     return op(x, k)
 
 
+def _f32_product(op, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """op(a, b), a bilinear product, at full float32 whatever the thread's
+    TF32 switches: on the card inside a TF32 segment three TF32 passes
+    over TF32-exact parts (a_hi a 10-bit-mantissa mask, a_lo = a - a_hi;
+    the a_lo.b_lo pass is dropped), which keeps about 21 bits; elsewhere
+    one product."""
+    if not (held_math_mode() and a.is_cuda and a.dtype == torch.float32):
+        return op(a, b)
+
+    def hi(t):
+        return (t.view(torch.int32) & -8192).view(torch.float32)
+
+    a_hi, b_hi = hi(a), hi(b)
+    return op(a_hi, b_hi) + op(a_hi, b - b_hi) + op(a - a_hi, b_hi)
+
+
+def conv_at(x: torch.Tensor, weight: torch.Tensor, padding, mode: str
+            ) -> torch.Tensor:
+    """A stride-1 convolution at one of gaitlab's matmul precisions
+    ("float32", "high" or "default"), whatever split the thread's
+    `conv_mode` asks for: gaitlab's packed convolutions (`packed_basic_
+    block`, hrnet.stem_conv_s2d) call conv_general_dilated themselves, so
+    a region's precision reaches them and its w2x/a2x split does not."""
+    def op(a, k):
+        return F.conv2d(a, k, None, 1, padding)
+
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    x, weight = x.to(dt), weight.to(dt)
+    if dt != torch.float32:
+        return op(x, weight)
+    if mode == "high":
+        return _passes(op, x, weight, "high")
+    if mode == "float32":
+        return _f32_product(op, x, weight)
+    return op(x, weight)
+
+
 def conv_w2x(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
              padding: int | None = None) -> torch.Tensor:
     """Two-pass kernel-split convolution (gaitlab's layers.conv_w2x, NCHW
@@ -132,16 +169,26 @@ def _conv_passes(x, weight, stride, padding, mode):
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d whose product follows the thread's `conv_mode`."""
+    """nn.Conv2d whose product follows the thread's `conv_mode`. An input
+    whose dtype is not the weight's (a bf16-stored activation under
+    `act_store`) meets it in the wider of the two, as Flax promotes mixed
+    operands: a bf16 value is exact in float32, so a bf16 activation
+    against float32 weights at w2x gives gaitlab's conv_w2x bf16 path,
+    x.k_hi + x.k_lo with exact products and FP32 sums, in float32."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.weight, self.bias
+        if x.dtype != w.dtype:
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(dt), w.to(dt)
+            b = None if b is None else b.to(dt)
         mode = _CONV_MODE.get()
         if (mode in ("high", "w2x", "a2x") and x.dtype == torch.float32
-                and not (mode != "high" and self.bias is not None)):
-            y = _passes(lambda a, k: self._conv_forward(a, k, None), x,
-                        self.weight, mode)
-            return y if self.bias is None else y + self.bias[:, None, None]
-        return super().forward(x)
+                and not (mode != "high" and b is not None)):
+            y = _passes(lambda a, k: self._conv_forward(a, k, None), x, w,
+                        mode)
+            return y if b is None else y + b[:, None, None]
+        return self._conv_forward(x, w, b)
 
 
 class Linear(nn.Linear):
@@ -169,15 +216,7 @@ def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     TF32 passes over TF32-exact parts (a_hi a 10-bit-mantissa mask, a_lo =
     a - a_hi; the a_lo.b_lo pass is dropped), which keeps about 21 bits;
     elsewhere it is one product."""
-    if not (held_math_mode() and a.is_cuda and a.dtype == torch.float32):
-        return torch.einsum(eq, a, b)
-
-    def hi(t):
-        return (t.view(torch.int32) & -8192).view(torch.float32)
-
-    a_hi, b_hi = hi(a), hi(b)
-    return (torch.einsum(eq, a_hi, b_hi) + torch.einsum(eq, a_hi, b - b_hi)
-            + torch.einsum(eq, a - a_hi, b_hi))
+    return _f32_product(lambda x, k: torch.einsum(eq, x, k), a, b)
 
 
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
@@ -189,6 +228,137 @@ def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
 
 def batch_norm(ch: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(ch, eps=BN_EPS)
+
+
+def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """NCHW nearest-neighbour upsampling by an integer `scale`."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+def upsample_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int
+                                    ) -> torch.Tensor:
+    """NCHW bilinear resize to (out_h, out_w) with align_corners=True, up or
+    down. gaitlab computes it as two interpolation matmuls; ATen's kernel
+    takes the same two-tap lerps in FP32, with no matmul to set a
+    precision for."""
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                         align_corners=True)
+
+
+def bf16_store(x: torch.Tensor) -> torch.Tensor:
+    """Activations stored as bfloat16, rounded to nearest even (gaitlab's
+    bf16_store on finite values; torch keeps a NaN a NaN, where gaitlab's
+    integer rounding can carry a NaN's mantissa into the sign bit)."""
+    return x.to(torch.bfloat16)
+
+
+# Space-to-depth packing: a stride-1 3x3 convolution on an (N, C, H, W)
+# grid is the same set of products as a 3x3 convolution on the (N, 4C,
+# H/2, W/2) grid of 2x2 pixel phases, with a zero-structured (4K, 4C, 3,
+# 3) kernel; every nonzero multiply-add is one of the original ones, and
+# one pixel of zero padding on the packed grid reproduces the original
+# padding exactly. gaitlab packs HRNet's 32-channel branches so for the
+# TPU's 128-lane matrix unit; on the card it is one more layout to time.
+
+def space_to_depth(x: torch.Tensor, f: int = 2) -> torch.Tensor:
+    """(N, C, H, W) -> (N, f*f*C, H/f, W/f), gaitlab's phase-major channel
+    order: pixel (f*i + qy, f*j + qx) channel c lands on channel
+    (qy*f + qx)*C + c."""
+    n, c, h, w = x.shape
+    if h % f or w % f:
+        raise ValueError(f"space_to_depth: H={h}, W={w} not multiples of {f}")
+    x = x.reshape(n, c, h // f, f, w // f, f).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, f * f * c, h // f, w // f)
+
+
+def depth_to_space(x: torch.Tensor, f: int = 2) -> torch.Tensor:
+    """The inverse of space_to_depth."""
+    n, cc, h, w = x.shape
+    c = cc // (f * f)
+    x = x.reshape(n, f, f, c, h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c, h * f, w * f)
+
+
+def _packed_taps() -> tuple:
+    """For (output phase p = py*2+px, input phase q = qy*2+qx, packed tap
+    di+1, dj+1), flattened in that order: the original tap (dy+1)*3 + dx+1
+    it carries, with dy = 2*di + qy - py (and likewise dx), or 9 (a zero)
+    where |dy| or |dx| exceeds 1."""
+    taps = []
+    for py in (0, 1):
+        for px in (0, 1):
+            for qy in (0, 1):
+                for qx in (0, 1):
+                    for di in (-1, 0, 1):
+                        for dj in (-1, 0, 1):
+                            dy, dx = 2 * di + qy - py, 2 * dj + qx - px
+                            taps.append((dy + 1) * 3 + dx + 1
+                                        if abs(dy) <= 1 and abs(dx) <= 1
+                                        else 9)
+    return tuple(taps)
+
+
+_PACKED_TAPS = _packed_taps()
+
+
+def packed_conv3x3_kernel(w: torch.Tensor) -> torch.Tensor:
+    """A stride-1, pad-1 3x3 kernel (K, C, 3, 3) -> its space-to-depth
+    form (4K, 4C, 3, 3), pad 1 on the packed grid too (gaitlab's
+    packed_conv3x3_kernel in OIHW): one gather from the kernel's taps and a
+    zero."""
+    k, c = w.shape[:2]
+    taps = torch.cat([w.reshape(k, c, 9), w.new_zeros(k, c, 1)], dim=2)
+    g = taps[:, :, constant(_PACKED_TAPS, "int64", w.device)]
+    return (g.reshape(k, c, 4, 4, 3, 3).permute(2, 0, 3, 1, 4, 5)
+            .reshape(4 * k, 4 * c, 3, 3))
+
+
+def packed_basic_block(block: nn.Module, x: torch.Tensor,
+                       mode: str = "float32") -> torch.Tensor:
+    """gaitlab's PackedBasicBlock: an HRNet BasicBlock (stride 1, no
+    projection) on space_to_depth's grid, through the block's own
+    conv1/bn1/conv2/bn2, inference only. It has no parameters of its own:
+    the packed kernels and the BatchNorms' running statistics and affine
+    terms tiled 4x are built from the block's at each call. Its
+    convolutions run at `mode` (conv_at)."""
+    if block.downsample is not None:
+        raise ValueError("packed_basic_block: a block with a projection")
+
+    def bn(z, m):
+        return F.batch_norm(z, m.running_mean.repeat(4),
+                            m.running_var.repeat(4), m.weight.repeat(4),
+                            m.bias.repeat(4), False, 0.0, m.eps)
+
+    out = conv_at(x, packed_conv3x3_kernel(block.conv1.weight), 1, mode)
+    out = F.relu(bn(out, block.bn1))
+    out = bn(conv_at(out, packed_conv3x3_kernel(block.conv2.weight), 1,
+                     mode), block.bn2)
+    return F.relu(out + x)
+
+
+_STANDARD_ONLY: contextvars.ContextVar = contextvars.ContextVar(
+    "gaitlab_torch_standard_only", default=False)
+
+
+@contextlib.contextmanager
+def standard_blocks():
+    """A context in which the backbone runs its standard blocks, never the
+    packed or space-to-depth ones, as gaitlab's train-mode passes do. BN
+    calibration (training._calibrate) reads each BatchNorm2d's input in a
+    hook, which a packed block, applying its BatchNorms' terms itself,
+    would never fire."""
+    tok = _STANDARD_ONLY.set(True)
+    try:
+        yield
+    finally:
+        _STANDARD_ONLY.reset(tok)
+
+
+def packing_allowed(module: nn.Module) -> bool:
+    """Whether `module` may take its packed or space-to-depth form:
+    gaitlab's inference-only rule (not in train mode), and not inside
+    standard_blocks()."""
+    return not (module.training or _STANDARD_ONLY.get())
 
 
 class LocallyConnected2d(nn.Module):

@@ -13,10 +13,16 @@ from __future__ import annotations
 from typing import Sequence, Type
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gaitlab_torch.nn.hrnet import BasicBlock, Bottleneck
 from gaitlab_torch.nn.layers import batch_norm, conv
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """torch MaxPool2d(kernel_size=3, stride=2, padding=1), NCHW."""
+    return F.max_pool2d(x, 3, 2, 1)
 
 
 class ResNet(nn.Module):
@@ -28,7 +34,6 @@ class ResNet(nn.Module):
         self.conv1 = conv(3, 64, 7, 2, padding=3)
         self.bn1 = batch_norm(64)
         self.relu = nn.ReLU(inplace=True)
-        self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
         for stage, (planes, blocks) in enumerate(
                 zip((64, 128, 256, 512), layers), start=1):
@@ -41,7 +46,7 @@ class ResNet(nn.Module):
         self.out_features = inplanes
 
     def forward(self, x: torch.Tensor, return_spatial: bool = False):
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = max_pool_3x3_s2(self.relu(self.bn1(self.conv1(x))))
         spatial = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         pooled = spatial.mean(dim=(2, 3))  # global average pool (headless)
         return (pooled, spatial) if return_spatial else pooled

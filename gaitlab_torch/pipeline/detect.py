@@ -175,6 +175,11 @@ class YoloDetector:
         return out
 
 
+# gaitlab's name for the detector with the tiny network (`get_detector`
+# picks the network by name)
+YoloTinyDetector = YoloDetector
+
+
 class DnnPersonDetector:
     """Person detector over cv2.dnn for a user-supplied one-file model (a
     YOLO-layout .onnx), filtered to the person class (COCO id 0) and

@@ -30,6 +30,7 @@ from gaitlab_torch.body import smpl as body_smpl
 from gaitlab_torch.device import float32_math, resolve_device, upload
 from gaitlab_torch.nn.gait import camera_reparam
 from gaitlab_torch.nn.grnet import GRNetCore, vp_regress
+from gaitlab_torch.nn.layers import standard_blocks
 from gaitlab_torch.parallel.replicas import Replicas, gather, scatter
 from gaitlab_torch.pipeline.crop import generate_patch_image, normalize_image
 from gaitlab_torch.weights import cache as wcache
@@ -121,6 +122,13 @@ class TrainState:
         self.optimizer.load_state_dict(tree["optimizer"])
         self.scheduler.load_state_dict(tree["scheduler"])
         self.step = int(tree["step"])
+
+
+def create_train_state(module: nn.Module, optimizer: tuple) -> TrainState:
+    """A TrainState at step 0 of `module` and make_optimizer's (optimizer,
+    scheduler) pair (gaitlab's create_train_state of params and an optax
+    transformation)."""
+    return TrainState(module, *optimizer)
 
 
 def grnet_loss(outputs: dict, batch: dict,
@@ -463,7 +471,8 @@ def _calibrate(bns: list, run: Callable[[], None]) -> None:
     its input in one pass of run(): the batch mean and the biased batch
     variance, which the pass also normalizes with (as a train-mode pass
     does); afterwards the variances are clamped at 1e-6, as gaitlab
-    clamps them."""
+    clamps them. The pass takes the backbone's standard blocks, as
+    gaitlab's train-mode pass does, so that every BatchNorm2d is called."""
     def take_batch_stats(bn, args):
         var, mean = torch.var_mean(args[0], dim=(0, 2, 3), unbiased=False)
         bn.running_mean.copy_(mean)
@@ -471,7 +480,7 @@ def _calibrate(bns: list, run: Callable[[], None]) -> None:
 
     handles = [bn.register_forward_pre_hook(take_batch_stats) for bn in bns]
     try:
-        with torch.no_grad(), float32_math():
+        with torch.no_grad(), float32_math(), standard_blocks():
             run()
     finally:
         for h in handles:

@@ -15,7 +15,8 @@ jax or gaitlab: the variables arrive as nested mappings of arrays
                                          (+ num_batches_tracked = 0)
 
 gaitlab's module names are the reference's torch paths with '.' written
-'_' (layer1_0, fuse_layers_0_1_0, upsample_stage_2_1, ...; HMR's
+'_' (layer1_0, fuse_layers_0_1_0, upsample_stage_2_1,
+downsample_stage_1_0, ...; HMR's
 backbone/layer2_0/downsample_0, head/decpose). Its YOLO
 module names are the port's own (conv{i}.conv, conv{i}.bn, conv{i}).
 
@@ -42,7 +43,8 @@ import numpy as np
 import torch
 
 # a flax module name = torch attribute name + '_'-joined Sequential indices
-_MODULE_NAME = re.compile(r"^(upsample_stage_\d|[a-z_]*[a-z]\d?)((?:_\d+)*)$")
+_MODULE_NAME = re.compile(
+    r"^((?:up|down)sample_stage_\d|[a-z_]*[a-z]\d?)((?:_\d+)*)$")
 _LEAF = {"kernel": "weight", "scale": "weight", "weight": "weight",
          "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _TOKEN_MAJOR_DENSE = ("shape_mlp", "cam_mlp")

@@ -38,6 +38,14 @@ Modes (parse_mode; gaitlab's grammar, limited to the port's modes):
   ...+heads_w2x, ...+heads_a2x  the upsample-head convs at two passes
   ...+resize_high               gaitlab's resize at high (the port's resize
                                 does no matmul: the same numbers)
+  bf16trunk+f32stem             the bf16 trunk but the stem (conv1, bn1,
+                                conv2, bn2 of the backbone) in float32 at
+                                high, its output cast to bf16 (cast_after)
+  ...+l1act16                   layer1's residual stream stored as bf16
+                                (act_store), layer1 at w2x
+  ...+s2d, ...+pack             the stem on the s2d grid (stem_s2d); the
+                                32-channel branches packed
+                                (pack_low_channel=32): the same products
 SMPL runs in float32 with TF32 off in every mode. Writes
 docs/TORCH_PRECISION.json (merging rows of modes measured before) with the
 card's name and power limit, and prints a markdown table.
@@ -67,7 +75,11 @@ MODES = ("float32", "high", "default", "bf16trunk", "bf16trunk+high",
          "backbone_high+rest_f32", "backbone_default+rest_f32",
          "bb_high+head_default", "high+heads_a2x") \
     + tuple(f"A:{r}" for r in REGIONS) \
-    + ("B:stem+layer1", "B:stem+layer1+stage2")
+    + ("B:stem+layer1", "B:stem+layer1+stage2", "bf16trunk+f32stem",
+       "high+l1act16", "float32+s2d", "high+s2d", "float32+pack",
+       "high+pack")
+PACK = 32  # "+pack": pack_low_channel, W32's highest-resolution branch
+STEM = ("conv1", "bn1", "conv2", "bn2")
 OUT = osp.join(REPO, "docs", "TORCH_PRECISION.json")
 
 
@@ -77,16 +89,29 @@ def log(*a):
 
 def parse_mode(mode: str) -> dict:
     """A mode name -> the trunk's settings: precision, head_precision,
-    region_precision, resize_precision and trunk_dtype."""
+    region_precision, resize_precision, trunk_dtype, f32_stem, and the
+    backbone variants cast_after, act_store, stem_s2d, pack_low_channel."""
     resize = "highest"
     regions = ()
+    variants = dict(cast_after=(), act_store=(), stem_s2d=False,
+                    pack_low_channel=0)
+    l1act16 = False
+    while mode.endswith(("+l1act16", "+s2d", "+pack")):
+        mode, suffix = mode.rsplit("+", 1)
+        if suffix == "l1act16":
+            l1act16 = True
+            variants["act_store"] = (("layer1", "bfloat16"),)
+        elif suffix == "s2d":
+            variants["stem_s2d"] = True
+        else:
+            variants["pack_low_channel"] = PACK
     if mode.endswith("+resize_high"):
         resize, mode = "high", mode[:-len("+resize_high")]
     for suffix in ("+heads_w2x", "+heads_a2x"):
         if mode.endswith(suffix):
             regions += (("heads", suffix[-3:]),)
             mode = mode[:-len(suffix)]
-    trunk = None
+    trunk, f32_stem = None, False
     if mode in ("float32", "default", "high"):
         prec, head = mode, ("default" if mode == "high" else None)
         if mode == "high":
@@ -97,6 +122,11 @@ def parse_mode(mode: str) -> dict:
         trunk = "bfloat16"
         prec = "high" if mode.endswith("high") else "default"
         head = None
+    elif mode == "bf16trunk+f32stem":
+        trunk, f32_stem = "bfloat16", True
+        prec, head = "default", None
+        regions += (("stem", "high"),)
+        variants["cast_after"] = (("stem", "bfloat16"),)
     elif mode in ("backbone_high+rest_f32", "backbone_default+rest_f32"):
         prec, head = "float32", "float32"
         regions += tuple((r, mode.split("_")[1].split("+")[0])
@@ -114,8 +144,11 @@ def parse_mode(mode: str) -> dict:
         regions += tuple((r, "w2x") for r in mode[2:].split("+") if r)
     else:
         raise ValueError(f"unknown mode {mode!r}")
+    if l1act16:
+        regions += (("layer1", "w2x"),)
     return dict(precision=prec, head_precision=head, region_precision=regions,
-                resize_precision=resize, trunk_dtype=trunk)
+                resize_precision=resize, trunk_dtype=trunk, f32_stem=f32_stem,
+                **variants)
 
 
 def crops(device) -> "torch.Tensor":
@@ -159,7 +192,8 @@ def build(calibrate: bool):
 
 def at_mode(model, mode: str):
     """A GRNet whose trunk runs `mode` (a view of the model's trunk, or a
-    bf16 copy of it)."""
+    bf16 copy of it; with f32_stem the stem's four modules stay the
+    model's float32 ones)."""
     import copy
     import dataclasses
 
@@ -168,9 +202,15 @@ def at_mode(model, mode: str):
     s = parse_mode(mode)
     core = model.module.with_precision(
         s["precision"], s["head_precision"], s["region_precision"],
-        s["resize_precision"])
+        s["resize_precision"]).with_backbone(
+        **{k: s[k] for k in ("cast_after", "act_store", "stem_s2d",
+                             "pack_low_channel")})
     if s["trunk_dtype"]:
         core = copy.deepcopy(core).to(torch.bfloat16)
+        if s["f32_stem"]:  # the stem: conv1/bn1/conv2/bn2 of the backbone
+            for name in STEM:
+                core.backbone._modules[name] = copy.deepcopy(
+                    getattr(model.module.backbone, name))
     return dataclasses.replace(model, module=core)
 
 
