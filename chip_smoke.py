@@ -187,6 +187,17 @@ Phases, each of which exits non-zero on failure:
              within 1e-3 of max(1, max|cpu|); (e) every variant's run
              launches B1 and B2 (B1 on bf16 inputs, without a copy, under
              the bf16 trunk), each call held against its plain version
+ 17. scripts the port's scripts through their main, at a reduced size,
+             --out in the work directory (SCRIPT_RUNS): latency at batches
+             1, 8, 32 (3 reps, "float32" and "high"), the MFU trace and its
+             report at batch 32 (2 iterations; the stage shares must sum to
+             100 +- 1%, the device time be above 0 and B1 and B2 appear by
+             name), the serve bench at 32 (pinned and live outputs within
+             1e-4 of max(1, max|live|)), the render bench (2 reps at 1080p;
+             card and CPU z-buffers agree), one-pass on a 200-frame 1080p
+             clip, the gait study at 30 steps; every B1 and B2 call held
+             against its plain version, B1's launch plan logged at each
+             batch met
 Two lines before the last list every kernel as JSON: launches_by_path
 holds the launches of each main path, phase 6's `--smooth` demo
 ("demo_smooth"), phase 8's two-pass `analyze_video` ("api_gait"), phase
@@ -199,14 +210,15 @@ its data-parallel train steps ("train_dp"), and phase 15's mode runs
 ("precision_float32", "_high", "_default", "_bf16"), MAX-GRNet at
 "high" ("precision_gait_high") and entry points ("demo_high",
 "api_high", "batchgen_high", "serve_high"), and phase 16's variants
-("backbone_pack", "_s2d", "_pack_s2d", "_l1act16", "_f32stem"), each
+("backbone_pack", "_s2d", "_pack_s2d", "_l1act16", "_f32stem"), and
+phase 17's scripts ("scripts_latency", "_mfu", "_serve", "_onepass"), each
 counted from 0 just before its run; B1 on bf16 inputs, its own kernel
 (csrc/keypoint_attention_bf16.cu), is a row of its own
 ("keypoint_attention_bf16", phase 15's and 16's paths, where the bf16
 trunk's head must hand it views it reads without a copy), and B1's row
 counts its float32 launches; launches is their sum; max_abs_err is the
 largest over phases 2, 6, 8, 10, 11, 12, 13 (13's backwards included),
-14, 15 and 16; fwd_bwd_ms
+14, 15, 16 and 17; fwd_bwd_ms
 holds phase 13's forward + backward timings. Kernel calls are seen at the ops' CUDA implementations, so
 calls from inside a loaded torch.export program are counted and checked
 too. The smoke's wall time is printed to stderr. The line before the
@@ -224,15 +236,22 @@ import os
 import os.path as osp
 import pickle
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
 
-H100_BYTES_PER_S = 3.35e12   # HBM3
-H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores
-H100_TF32_FLOP_PER_S = 495e12  # TF32 tensor cores, dense
-H100_BF16_FLOP_PER_S = 989e12  # bf16 tensor cores, dense
+# the port's scripts, which phases 16 and 17 run: the card's peaks and
+# the render bench's mesh come from them
+sys.path.insert(0, osp.join(osp.dirname(osp.abspath(__file__)), "scripts"))
+from torch_mfu_report import (H100_BF16_FLOP_PER_S,  # noqa: E402
+                              H100_BYTES_PER_S, H100_FP32_FLOP_PER_S,
+                              H100_TF32_FLOP_PER_S)
+from torch_mfu_trace import b1_work, b2_work  # noqa: E402
+from torch_render_bench import CAM as ZBUF_CAM  # noqa: E402
+from torch_render_bench import sphere_mesh  # noqa: E402
+from torch_stage_timing import card as card_line  # noqa: E402
+from torch_stage_timing import events_ms  # noqa: E402
+
 SEED = 0
 CLIP_W, CLIP_H, CLIP_FRAMES = 320, 240, 160
 TRACKS = ((0, 150), (100, 160))  # [start, end) frames of the two tracks
@@ -271,7 +290,6 @@ TRACK_SLACK = 3  # SORT emits a new track from its third hit
 SMOOTH_TOL = {"verts": (2e-4, 2e-5), "pose": (1e-6, 1e-6),
               "joints3d": (2e-4, 2e-5)}
 RENDER_H, RENDER_W = 1080, 1920
-ZBUF_CAM = [0.9, 0.9, 0.05, -0.1]  # scripts/render_bench.py's person scale
 ZBUF_REPS = 10
 # z-buffer card against CPU: the same float32 arithmetic, fused in other
 # orders, may put a fragment on a pixel edge either way
@@ -350,16 +368,22 @@ BB_HEADS = (("hrnet_w32", True, True), ("hrnet_w32", False, False),
             ("hrnet_w32", True, False), ("hrnet_w48", False, True))
 BB_CPU_CROPS = 2
 BB_CPU_RTOL = 1e-3
+# phase 17: each card script's main at a reduced size (script, its path in
+# the kernels line or None, argv before --out), every kernel call held
+SCRIPT_RUNS = (
+    ("torch_latency_bench", "scripts_latency",
+     ["--batches", "1,8,32", "--reps", "3"]),
+    ("torch_mfu_trace", "scripts_mfu", ["--batch", "32", "--iters", "2"]),
+    ("torch_serve_bench", "scripts_serve", ["--batch", "32"]),
+    ("torch_render_bench", None, ["--reps", "2"]),
+    ("torch_onepass_util", "scripts_onepass", ["--frames", "200"]),
+    ("torch_gait_robustness", None, ["--steps", "30"]),
+)
+SHARE_SLACK_PCT = 1.0  # the MFU report's stage shares sum to 100 +- this
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 def time_ms(fn, flush, reps: int = 20, warm: int = 3) -> float:
@@ -429,8 +453,7 @@ def check_blendshapes(gen, flush) -> dict:
     lib = torch.addmm(vt_row, coef, dirs).reshape(LOOP_BATCH, V, 3)
     if not torch.allclose(lib, blendshapes(*args), atol=1e-4):
         raise AssertionError("the library yardstick computes another function")
-    nbytes = 4 * (R + R * S + P * R + LOOP_BATCH * (S + P) + LOOP_BATCH * R)
-    flops = 2 * LOOP_BATCH * R * (S + P) + LOOP_BATCH * R
+    flops, nbytes = b2_work(*args)
     # the kernel's route: 3xTF32, three tensor-core products per product
     b_ms, b_by = bound(nbytes, 3 * flops, H100_TF32_FLOP_PER_S)
     fp32_ms, fp32_by = bound(nbytes, flops)
@@ -498,9 +521,7 @@ def check_keypoint_attention(gen, flush) -> dict:
     lib = library()[:, 0]
     if not torch.allclose(lib, torch.cat(ref, -1), atol=1e-3):
         raise AssertionError("the library yardstick computes another function")
-    hw = H * W
-    nbytes = 4 * LOOP_BATCH * (hw * J + hw * (C1 + C2) + J * (C1 + C2))
-    flops = LOOP_BATCH * J * hw * (2 * (C1 + C2) + 5)
+    flops, nbytes = b1_work(*args)
     b_ms, b_by = bound(nbytes, flops)
     return dict(
         name="keypoint_attention", route="cuda",
@@ -572,10 +593,7 @@ def check_keypoint_attention_bf16(gen, flush) -> dict:
     if not torch.allclose(library()[:, 0].float(), torch.cat(ref, -1),
                           atol=2e-2, rtol=1e-2):
         raise AssertionError("the library yardstick computes another function")
-    hw = H * W
-    nbytes = (2 * LOOP_BATCH * hw * (J + C1 + C2)
-              + 4 * LOOP_BATCH * J * (C1 + C2))
-    flops = LOOP_BATCH * J * hw * (2 * (C1 + C2) + 5)
+    flops, nbytes = b1_work(*args)
     # the kernel's route: the products on the bf16 tensor cores, three per
     # product (the FP32 weight's three bf16 parts); the FP32 FFMA of the
     # float32 kernel would take flops / H100_FP32_FLOP_PER_S
@@ -1450,25 +1468,6 @@ def gait_padding(model, crops, bbox, cimg) -> None:
             raise AssertionError(f"padding moves the gait branch's {k}")
 
 
-def events_ms(fn, reps: int = 5) -> float:
-    """Median device time of one call of a forward (CUDA events), after
-    two warm-up calls."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def gait_loop(plain, gait, crops, bbox, cimg) -> dict:
     """Model-loop frames/s (CUDA events, median of 5) at each of
     GAIT_LOOP_BUCKETS with and without the gait branch, and a profile of
@@ -1689,27 +1688,6 @@ def gait_phase(ckpt: str, workdir: str, trackfile: str, det_vid: str
 # ---------------------------------------------------------------------------
 # phase 9: render, export and the frame loader
 # ---------------------------------------------------------------------------
-
-def sphere_mesh(rings: int = 85, segs: int = 81, r: float = 0.45):
-    """scripts/render_bench.py's UV sphere at SMPL scale: 6,966 vertices,
-    13,770 faces."""
-    import numpy as np
-
-    phi = np.linspace(0, np.pi, rings + 1)
-    theta = np.linspace(0, 2 * np.pi, segs, endpoint=False)
-    P, T = np.meshgrid(phi, theta, indexing="ij")
-    verts = r * np.stack([np.sin(P) * np.cos(T), np.cos(P),
-                          np.sin(P) * np.sin(T)], axis=-1).reshape(-1, 3)
-    faces = []
-    for i in range(rings):
-        for j in range(segs):
-            a = i * segs + j
-            b = i * segs + (j + 1) % segs
-            c = (i + 1) * segs + j
-            d = (i + 1) * segs + (j + 1) % segs
-            faces += [[a, b, c], [b, d, c]]
-    return verts, np.asarray(faces, np.int64)
-
 
 def video_frames(path: str) -> tuple[int, tuple]:
     """(frame count, frame shape) of a video as cv2 decodes it."""
@@ -3813,13 +3791,10 @@ def study_modules():
     """scripts/torch_precision_study.py (the modes' grammar and views) and
     scripts/torch_stage_timing.py (region times), imported from the
     checkout."""
-    import importlib
+    import torch_precision_study
+    import torch_stage_timing
 
-    scripts = osp.join(osp.dirname(osp.abspath(__file__)), "scripts")
-    if scripts not in sys.path:
-        sys.path.insert(0, scripts)
-    return (importlib.import_module("torch_precision_study"),
-            importlib.import_module("torch_stage_timing"))
+    return torch_precision_study, torch_stage_timing
 
 
 def backbone_variants(model, crops) -> tuple[dict, dict]:
@@ -3962,6 +3937,123 @@ def backbone_phase(trackfile: str, ckpt: str, workdir: str
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the port's scripts
+# ---------------------------------------------------------------------------
+
+def hold_each(tag: str, seen: dict, counts: dict) -> dict:
+    """Every kernel call of a script's run held against its plain version
+    on the call's own inputs (kernel_spies(check=True); the tolerance
+    scales with max(1, max|plain|) as in hold_calls), summed up in one line
+    per kernel with B1's launch plan at each batch met. Returns each
+    kernel's largest error."""
+    import torch
+
+    from gaitlab_torch.ops.keypoint_attention import launch_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = {"blendshapes": counts["blendshapes"],
+            "keypoint_attention": counts["keypoint_attention"]
+            + counts["keypoint_attention_bf16"]}
+    errs = {}
+    for name, calls in seen["calls"].items():
+        tol = B1_ATOL if name == "keypoint_attention" else B2_ATOL
+        worst = max((e["err"] / (tol * max(1.0, e["scale"]))
+                     for _, e in calls), default=0.0)
+        errs[name] = max((e["err"] for _, e in calls), default=0.0)
+        if len(calls) != want[name] or not worst <= 1.0:
+            raise AssertionError(f"{tag} {name}: {len(calls)} calls held of "
+                                 f"{want[name]}, worst {worst:.3f}")
+        if not calls:
+            continue
+        batches = sorted({shapes[-1][0] for shapes, _ in calls})
+        plans = "" if name != "keypoint_attention" else (
+            "; launch plan " + ", ".join(
+                f"B={b}: {launch_plan(b, 56 * 56, 192, sms).n_split} splits"
+                for b in batches))
+        log(f"[scripts] {tag} {name}: {len(calls)} calls at batches "
+            f"{batches}, each held: max_abs_err {errs[name]:.3e}, worst "
+            f"{worst:.3f} of its tolerance{plans}")
+    return errs
+
+
+def check_script_output(name: str, doc: dict, card: str) -> None:
+    """What phase 17 holds each script's document to."""
+    import numpy as np
+
+    if doc["card"] != card:
+        raise AssertionError(f"{name}: card {doc['card']!r}")
+    if name == "torch_latency_bench":
+        rows = [r for rows in doc["modes"].values() for r in rows]
+        if not rows or not all(r["ms_device"] > 0 and r["ms_dispatch"] > 0
+                               for r in rows):
+            raise AssertionError(f"{name}: {rows}")
+    elif name == "torch_mfu_trace":
+        for mode, rep in doc["modes"].items():
+            share = sum(s["share_pct"] for s in rep["stages"].values())
+            kernels = {v["kernel"] for v in rep["port_kernels"].values()}
+            log(f"[scripts] mfu {mode}: {rep['total_device_ms_per_iter']:.3f}"
+                f" device ms/iter, shares sum {share:.3f}%, busy "
+                f"{rep['busy_pct']:.1f}%, mfu {rep['mfu_pct']:.2f}%, port "
+                f"kernels {sorted(kernels)}")
+            if not (abs(share - 100.0) <= SHARE_SLACK_PCT
+                    and rep["total_device_ms_per_iter"] > 0
+                    and {"B1", "B2"} <= kernels):
+                raise AssertionError(f"{name} {mode}: {rep}")
+    elif name == "torch_serve_bench":
+        err = max(doc["max_rel_err_pinned_vs_live"].values())
+        log(f"[scripts] serve: pinned/live {doc['pinned_over_live']:.4f}, "
+            f"max |pinned - live| / max(1, max|live|) {err:.3e} (bound "
+            f"{PAD_ATOL:g})")
+        if not err <= PAD_ATOL:
+            raise AssertionError(f"{name}: pinned and live disagree ({err})")
+    elif name == "torch_render_bench":
+        agree = doc["pixel_agreement"]["zbuffer_card_vs_cpu_equal"]
+        if not agree >= ZBUF_MIN_AGREEMENT:
+            raise AssertionError(f"{name}: card and CPU z-buffers {agree}")
+    elif name == "torch_onepass_util":
+        if not (doc["tracks"] and doc["device_busy_s"] > 0):
+            raise AssertionError(f"{name}: {doc}")
+    elif not all(np.isfinite(r["phase_err_trained"])
+                 for r in doc["results"] + doc["transfer"]["results"]):
+        raise AssertionError(f"{name}: {doc}")
+
+
+def scripts_phase(workdir: str, card: str) -> tuple[dict, dict]:
+    """Phase 17. Each of SCRIPT_RUNS through its main with --out (and the
+    trace and clip directories) in the work directory, every kernel call
+    held against its plain version; the launches of the scripts that run
+    the model, and each kernel's largest checked error."""
+    import importlib
+
+    t0 = time.perf_counter()
+    out_dir = osp.join(workdir, "scripts")
+    launches, errs = {}, []
+    for name, path, argv in SCRIPT_RUNS:
+        out = osp.join(out_dir, f"{name}.json")
+        argv = argv + ["--out", out] + {
+            "torch_mfu_trace": ["--trace_dir", osp.join(out_dir, "trace")],
+            "torch_onepass_util": ["--clip_dir", out_dir]}.get(name, [])
+        t1 = time.perf_counter()
+        with kernel_spies(check=True) as seen:
+            fns = zeroed_counts()
+            rc = importlib.import_module(name).main(argv)
+            counts = launch_counts(fns)
+        if rc != 0:
+            raise AssertionError(f"{name} {argv}: exit {rc}")
+        errs.append(hold_each(name, seen, counts))
+        with open(out) as f:
+            check_script_output(name, json.load(f), card)
+        log(f"[scripts] {name} {' '.join(argv[:-2])}: "
+            f"{time.perf_counter() - t1:.1f} s, launches {counts}")
+        if path:
+            launches[path] = counts
+            if not (counts["keypoint_attention"] and counts["blendshapes"]):
+                raise AssertionError(f"{name}: launches {counts}")
+    log(f"[scripts] phase 17 took {time.perf_counter() - t0:.1f} s")
+    return launches, {k: max(e[k] for e in errs) for k in errs[0]}
+
+
 def main() -> int:
     import torch
 
@@ -4028,12 +4120,14 @@ def main() -> int:
         prec_launches, prec_errs = precision_phase(vid, trackfile, ckpt,
                                                    workdir)
         bb_launches, bb_errs = backbone_phase(trackfile, ckpt, workdir)
+        script_launches, script_errs = scripts_phase(workdir, card)
     paths = {"demo_smooth": launches, "api_gait": gait_launches,
              "demo_render": render_launches, "batchgen": bg_launches,
              "serve_run": serve_launches, "hmr": hmr_launches,
              "train": train_launches, "train_gait": train_gait_launches,
              "parallel_dp": dp_launches, "parallel_pp": pp_launches,
-             "train_dp": train_dp_launches, **prec_launches, **bb_launches}
+             "train_dp": train_dp_launches, **prec_launches, **bb_launches,
+             **script_launches}
     for r in rows:
         name = r["name"]
         if name == "keypoint_attention_bf16":
@@ -4052,7 +4146,8 @@ def main() -> int:
                                    gait_errs[name], bg_errs[name],
                                    serve_errs[name], hmr_errs[name],
                                    train_errs[name], par_errs[name],
-                                   prec_errs[name], bb_errs[name])
+                                   prec_errs[name], bb_errs[name],
+                                   script_errs[name])
             r["fwd_bwd_ms"] = bwd_times[name]
         r["launches"] = sum(r["launches_by_path"].values())
     if not prec_launches["precision_bf16"]["keypoint_attention_bf16"]:

@@ -270,14 +270,10 @@ def accuracy(modes: list) -> tuple[dict, float]:
     return res, spread
 
 
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-
-
 def main(argv: list) -> int:
     import torch
+
+    from torch_stage_timing import card
 
     if not torch.cuda.is_available():
         print("torch_precision_study: CUDA is not available", file=sys.stderr)

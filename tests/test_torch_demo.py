@@ -211,11 +211,12 @@ def test_entry_points_never_fall_back_to_the_cpu(clip):
 
 
 def test_port_imports_neither_jax_nor_gaitlab():
-    """Every gaitlab_torch module imports with JAX blocked, and leaves no
-    gaitlab, jax or flax module behind. A subprocess: the test process has
-    imported all of them already (tests/conftest.py imports jax)."""
+    """Every gaitlab_torch module, every scripts/torch_*.py and
+    chip_smoke.py import with JAX blocked, and leave no gaitlab,
+    bench_e2e, jax or flax module behind. A subprocess: the test process
+    has imported all of them already (tests/conftest.py imports jax)."""
     code = r"""
-import importlib, pkgutil, sys
+import glob, importlib, os, pkgutil, sys
 for name in ("jax", "jaxlib", "flax"):
     sys.modules[name] = None  # any import of them raises
 import gaitlab_torch
@@ -223,13 +224,18 @@ names = [m.name for m in pkgutil.walk_packages(gaitlab_torch.__path__,
                                                "gaitlab_torch.")]
 for name in names:
     importlib.import_module(name)
+sys.path.insert(0, "scripts")  # the scripts import their siblings
+scripts = sorted(os.path.basename(p)[:-3]
+                 for p in glob.glob("scripts/torch_*.py"))
+for name in scripts:
+    importlib.import_module(name)
 import chip_smoke
 loaded = [m for m, v in sys.modules.items() if v is not None and (
-    m.split(".")[0] in ("gaitlab", "jax", "jaxlib", "flax"))]
+    m.split(".")[0] in ("gaitlab", "jax", "jaxlib", "flax", "bench_e2e"))]
 assert not loaded, loaded
 # nothing is compiled or prepared for compiling at import
 assert "torch.utils.cpp_extension" not in sys.modules
-print(" ".join(names))
+print(" ".join(names + scripts))
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -248,6 +254,11 @@ print(" ".join(names))
         "weights.cache", "nn.resnet", "nn.spin", "eval", "training",
         "cli.train", "parallel", "parallel.mesh", "parallel.replicas",
         "parallel.pipeline")} <= names
+    assert {f"torch_{s}" for s in (
+        "prepare_data", "latency_bench", "serve_bench", "mfu_trace",
+        "mfu_report", "render_bench", "onepass_util", "gait_robustness",
+        "precision_study", "stage_timing", "pack_bench", "stem_s2d_bench",
+        "kernel_study")} <= names
 
 
 def test_ops_import_no_model_code():
