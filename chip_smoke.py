@@ -250,7 +250,7 @@ from torch_mfu_trace import b1_work, b2_work  # noqa: E402
 from torch_render_bench import CAM as ZBUF_CAM  # noqa: E402
 from torch_render_bench import sphere_mesh  # noqa: E402
 from torch_stage_timing import card as card_line  # noqa: E402
-from torch_stage_timing import events_ms  # noqa: E402
+from torch_stage_timing import device_ops, events_ms  # noqa: E402
 
 SEED = 0
 CLIP_W, CLIP_H, CLIP_FRAMES = 320, 240, 160
@@ -809,8 +809,7 @@ def profile_loop(model, crops) -> None:
         model.forward(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_ops(prof)
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     if total <= 0:
         log("[profile] the profiler saw no device time: not measured")
@@ -1032,8 +1031,7 @@ def detect_phase(vid: str, workdir: str) -> str:
         det.predict(boxed)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_ops(prof)
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     if total <= 0:
         log("[detect] the profiler saw no device time: not measured")
@@ -1203,8 +1201,7 @@ def check_smooth_pose(args, kw, card_out) -> None:
         smoothing.smooth_pose(*args, smpl_params=params, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_ops(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     count = sum(e.count for e in kernels)
     log(f"[track] smooth_pose profile on {n} frames: {count} device "
@@ -1559,8 +1556,7 @@ def profiled(tag: str, label: str, fn, top: int) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_ops(prof)
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     if total <= 0:
         log(f"[{tag}] profile of {label}: no device time seen, not measured")
@@ -3177,8 +3173,7 @@ def par_dp(model, tracks: list, workdir: str, card: list) -> dict:
         dp._forward_bucket(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_ops(prof)
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"[parallel] profile of one DP bucket of {PAR_BUCKET}: device busy "
         f"{total:.3f} ms (summed over streams) in a {wall_ms:.2f} ms window; "

@@ -14,6 +14,8 @@ import threading
 import numpy as np
 import torch
 
+from gaitlab_torch.utils import count
+
 
 def resolve_device(device=None) -> torch.device:
     """`None` means CUDA. Raises when CUDA is absent and the caller did not
@@ -31,12 +33,14 @@ def upload(x, device) -> torch.Tensor:
     pinned memory as an asynchronous copy: a copy from pageable memory
     makes the host wait until the card has run everything queued before
     it. The pinned block is the caching host allocator's, which reuses it
-    only once the copy has run, so the caller need not keep it."""
+    only once the copy has run, so the caller need not keep it. The bytes
+    copied to the card count as `h2d_bytes` in this thread's open span."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
     device = torch.device(device)
     if device.type != "cuda" or x.device.type != "cpu":
         return x.to(device)
+    count(h2d_bytes=x.numel() * x.element_size())
     return x.pin_memory().to(device, non_blocking=True)
 
 

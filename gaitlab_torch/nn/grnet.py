@@ -33,6 +33,7 @@ from gaitlab_torch.nn.hrnet import REGIONS, HRNetCfg, PoseHighResolutionNet
 from gaitlab_torch.nn.layers import check_mode, precision_scope
 from gaitlab_torch.nn.pare_head import PareHead
 from gaitlab_torch.pipeline.crop import normalize_image
+from gaitlab_torch.utils import span
 
 
 class GRNetCore(nn.Module):
@@ -157,10 +158,12 @@ class GRNetCore(nn.Module):
     def run_segments(self, carry: dict, names) -> dict:
         """Run the named segments on a carry dict: {"x": images[, "bbox",
         "cimg", "n_valid"]} before the first; between the regions "x" is a
-        region's output; after the last, the head's output dict."""
+        region's output; after the last, the head's output dict. Each
+        segment is a span `model/<name>`."""
         modes = dict(self.segments())
         for name in names:
-            carry = self._segment(name, modes[name], carry)
+            with span("model/" + name):
+                carry = self._segment(name, modes[name], carry)
         return carry
 
     def _segment(self, name: str, mode: str, carry: dict) -> dict:
@@ -426,6 +429,7 @@ class GRNet:
                 kw["n_valid"] = upload(torch.tensor(n_valid), self.device)
         with torch.inference_mode():
             patt = self.module(x.contiguous(), **kw)
-            return vp_regress(self.smpl, patt, batch_size=b,
-                              J_regressor=J_regressor,
-                              joint_mode=self.joint_mode)
+            with span("model/regress"):
+                return vp_regress(self.smpl, patt, batch_size=b,
+                                  J_regressor=J_regressor,
+                                  joint_mode=self.joint_mode)

@@ -48,6 +48,7 @@ from __future__ import annotations
 import bisect
 import copy
 import dataclasses
+import itertools
 import os
 import queue
 import threading
@@ -62,6 +63,7 @@ from gaitlab_torch.parallel import mesh as mesh_mod
 from gaitlab_torch.parallel.replicas import Replicas, gather, scatter
 from gaitlab_torch.pipeline import crop as crop_mod
 from gaitlab_torch.pipeline import loader
+from gaitlab_torch.utils import span, span_parent
 
 if TYPE_CHECKING:
     from gaitlab_torch.nn.grnet import GRNet
@@ -113,6 +115,10 @@ class GRNetRunner:
     # identity and versions it was derived from
     _derived: dict = field(default_factory=dict, init=False, repr=False)
     _derived_from: object = field(default=None, init=False, repr=False)
+    # each run_track's id in its spans
+    _track_ids: itertools.count = field(default_factory=itertools.count,
+                                        init=False, repr=False,
+                                        compare=False)
 
     def __post_init__(self):
         if self.precision not in PRECISIONS:
@@ -301,12 +307,15 @@ class GRNetRunner:
 
         reps, smpls = dp
         dev0, joint_mode = reps.devices[0], self.model.joint_mode
+        parent = span_parent()  # the replicas' threads have no open span
 
         def nchw(x):
             return x.permute(0, 3, 1, 2).contiguous()
 
         def whole(core, smpl, x):
-            out = vp_regress(smpl, core(nchw(x)), joint_mode=joint_mode)[0]
+            patt = core(nchw(x))
+            with span("model/regress", parent=parent):
+                out = vp_regress(smpl, patt, joint_mode=joint_mode)[0]
             return {k: out[k] for k in OUTPUT_KEYS}
 
         def frames(core, x, bb, ci):
@@ -324,7 +333,8 @@ class GRNetRunner:
                 scatter(cimg, reps.devices)))), dev0)
             patt = reps.modules[0].track_part(
                 rows, upload(torch.tensor(n_valid), dev0))
-            return vp_regress(smpls[0], patt, joint_mode=joint_mode)[0]
+            with span("model/regress"):
+                return vp_regress(smpls[0], patt, joint_mode=joint_mode)[0]
 
     def _pp_forward(self, crops: torch.Tensor) -> dict:
         """A whole track's normalized crops through the 2-stage pipeline
@@ -410,14 +420,16 @@ class GRNetRunner:
         s = 0
         for chunk in chunks:
             e = s + len(chunk)
-            if crop_on == "host":
-                u8 = self._host_crop(chunk, bboxes[s:e], scale)
-                yield u8 if self.takes_uint8 else crop_mod.normalize_image(
-                    upload(u8, device))
-            else:
-                yield crop_mod.crop_and_normalize(
-                    chunk, bboxes[s:e], scale=scale,
-                    crop_size=self.crop_size, device=device)
+            with span("runner/crop", frames=e - s):
+                if crop_on == "host":
+                    out = self._host_crop(chunk, bboxes[s:e], scale)
+                    if not self.takes_uint8:
+                        out = crop_mod.normalize_image(upload(out, device))
+                else:
+                    out = crop_mod.crop_and_normalize(
+                        chunk, bboxes[s:e], scale=scale,
+                        crop_size=self.crop_size, device=device)
+            yield out
             s = e
         if s != n:
             raise FrameCountError(f"{s} frames for {n} bboxes")
@@ -450,15 +462,17 @@ class GRNetRunner:
         crop coords}, and with the gait branch 'pred_avg' (3,) and
         'pred_phase' (N,4); the branch gets each frame's bbox and the
         image centre."""
-        bb = ci = None
-        if self.model.module.use_gait_feat:
-            h, w = self._frame_hw(frames_or_paths)
-            bb = np.asarray(bboxes, np.float32)
-            ci = np.full((len(bb), 2), [w * 0.5, h * 0.5], np.float32)
-        out = self._forward_stream(
-            self._crop_stream(frames_or_paths, bboxes, scale),
-            bbox=bb, cimg=ci)
-        return track_outputs(out)
+        with span("runner/track", parent=next(self._track_ids),
+                  frames=len(bboxes)):
+            bb = ci = None
+            if self.model.module.use_gait_feat:
+                h, w = self._frame_hw(frames_or_paths)
+                bb = np.asarray(bboxes, np.float32)
+                ci = np.full((len(bb), 2), [w * 0.5, h * 0.5], np.float32)
+            out = self._forward_stream(
+                self._crop_stream(frames_or_paths, bboxes, scale),
+                bbox=bb, cimg=ci)
+            return track_outputs(out)
 
 
 class FrameCountError(ValueError):
@@ -546,11 +560,15 @@ class ForwardStream:
             except BaseException as e:  # raised at the next feed/finish
                 self._err.append(e)
 
-    def _forward(self, pieces: list, rows: dict) -> dict:
-        """One bucket's forward from its chunk slices and host rows."""
-        crops = torch.cat([self._to_device(p) for p in pieces])
-        rows = {k: upload(v, self.device) for k, v in rows.items()}
-        return self.runner._forward_bucket(crops, **rows)
+    def _forward(self, pieces: list, rows: dict, parent=None) -> dict:
+        """One bucket's forward from its chunk slices and host rows, in a
+        span of the track `parent` (the caller's, passed in the queue)."""
+        m = sum(len(p) for p in pieces)
+        with span("stream/forward", parent=parent,
+                  rows=self.runner._bucket(m), frames=m):
+            crops = torch.cat([self._to_device(p) for p in pieces])
+            rows = {k: upload(v, self.device) for k, v in rows.items()}
+            return self.runner._forward_bucket(crops, **rows)
 
     def _check_err(self) -> None:
         if self._err:
@@ -588,7 +606,9 @@ class ForwardStream:
             self._queue = queue.Queue(maxsize=2)
             self._thread = threading.Thread(target=self._work, daemon=True)
             self._thread.start()
-        self._queue.put((self._take(m), rows))
+        item = (self._take(m), rows, span_parent())
+        with span("stream/wait"):  # while the queue is full
+            self._queue.put(item)
         self._lengths.append(m)
 
     def feed(self, chunk, bbox=None, cimg=None) -> None:
@@ -606,8 +626,9 @@ class ForwardStream:
 
     def _join(self) -> None:
         if self._thread is not None:
-            self._queue.put(None)
-            self._thread.join()
+            with span("stream/wait"):
+                self._queue.put(None)
+                self._thread.join()
             self._thread = None
 
     def close(self) -> None:
@@ -638,16 +659,20 @@ class ForwardStream:
             return {}
         fetch = self.runner.fetch
         want = None if fetch is None else set(fetch) | set(GAIT_KEYS)
-        fetched = [{k: v.cpu().numpy() for k, v in out.items()
-                    if want is None or k in want} for out in self._outs]
-        self._outs = []
-        merged = {}
-        for k in fetched[0]:
-            if k == "pred_avg":
-                # a track-level estimate per forward, weighted by its real
-                # frames (the tail forward may be mostly padding)
-                merged[k] = np.average([o[k][0] for o in fetched], axis=0,
-                                       weights=self._lengths)
-            else:
-                merged[k] = np.concatenate([o[k] for o in fetched])
+        with span("stream/readback") as sp:
+            fetched = [{k: v.cpu().numpy() for k, v in out.items()
+                        if want is None or k in want} for out in self._outs]
+            self._outs = []
+            if sp and self.device.type != "cpu":
+                sp.add(d2h_bytes=sum(a.nbytes for o in fetched
+                                     for a in o.values()))
+            merged = {}
+            for k in fetched[0]:
+                if k == "pred_avg":
+                    # a track-level estimate per forward, weighted by its
+                    # real frames (the tail forward may be mostly padding)
+                    merged[k] = np.average([o[k][0] for o in fetched],
+                                           axis=0, weights=self._lengths)
+                else:
+                    merged[k] = np.concatenate([o[k] for o in fetched])
         return merged

@@ -55,7 +55,7 @@ import numpy as np
 
 # the study's mode names and views; importing it puts the repo on sys.path
 from torch_precision_study import REPO, at_mode
-from torch_stage_timing import SEED, card, events_ms
+from torch_stage_timing import SEED, card, device_ops, events_ms
 
 BATCHES = tuple(int(b) for b in os.environ.get(
     "GAITLAB_LATENCY_BATCHES", "1,8,16,32,64,128").split(","))
@@ -95,8 +95,7 @@ def kernel_ms(fn) -> float:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return sum(e.self_device_time_total for e in device_ops(prof)) / 1e3
 
 
 def chain_ms(fn, n: int, sync) -> float:

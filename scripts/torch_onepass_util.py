@@ -41,7 +41,7 @@ import time
 import numpy as np
 
 from torch_precision_study import REPO
-from torch_stage_timing import SEED, card
+from torch_stage_timing import SEED, card, device_ops
 
 N_FRAMES = 2000
 W, H = 1920, 1080          # reference batch_generation operating point
@@ -84,8 +84,7 @@ def device_seconds(fn) -> tuple[float, float]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy = sum(e.self_device_time_total for e in device_ops(prof))
     return busy / 1e6, wall
 
 

@@ -69,6 +69,19 @@ def events_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def device_ops(prof) -> list:
+    """The key_averages() entries of a torch.profiler profile that are
+    work on the card: kernels, copies and memsets. A record_function range
+    (the port's spans among them) is also reported on the card, as a user
+    annotation over the work it held; it is left out, as torch's own device
+    total leaves it out, so that nothing is counted twice."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
 def crops(device, n: int = BATCH, seed: int = SEED + 11):
     """n normalized NHWC crops of unit-scale noise."""
     import torch

@@ -22,6 +22,7 @@ import importlib.util
 import json
 import os.path as osp
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -419,3 +420,20 @@ def test_gait_robustness_runs_on_the_cpu_when_asked(tmp_path):
     doc = json.loads(out.read_text())
     assert doc["card"] is None and doc["device"] == "cpu"
     assert len(doc["results"]) == 10 and len(doc["transfer"]["results"]) == 3
+
+
+def test_device_ops_leave_out_user_annotations():
+    """A record_function range (a port span) is reported on the card too;
+    the scripts' device sums count kernels, copies and memsets only."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def ev(key, device_type, annotation):
+        return types.SimpleNamespace(key=key, device_type=device_type,
+                                     is_user_annotation=annotation,
+                                     self_device_time_total=10.0)
+
+    prof = types.SimpleNamespace(key_averages=lambda: [
+        ev("sgemm", cuda, False), ev("Memcpy DtoH", cuda, False),
+        ev("model/stem", cuda, True), ev("aten::conv2d", cpu, False)])
+    got = load("torch_stage_timing").device_ops(prof)
+    assert [e.key for e in got] == ["sgemm", "Memcpy DtoH"]
