@@ -12,7 +12,10 @@ Phases, each of which exits non-zero on failure:
              the largest bucket; B1 on float32 and on bf16 inputs, the
              latter without a copy); time kernel, plain version and one
              library call with CUDA events at B = 128 (and B1's FP32 kernel
-             on the bf16 kernel's values)
+             on the bf16 kernel's values); the head's bilinear resize at its
+             six shapes, equal to ATen's bit for bit in float32, bfloat16
+             and float16, timed over the six against its byte bound (at
+             least RESIZE_MIN_SHARE of it)
   3. path    run `gaitlab_torch.cli.demo --tracking_path` at full width
              (HRNet-W32 + PARE + synthetic SMPL, 224 crops) on a synthetic
              clip with two tracks (150 and 60 frames: two buckets, tail
@@ -216,9 +219,12 @@ counted from 0 just before its run; B1 on bf16 inputs, its own kernel
 (csrc/keypoint_attention_bf16.cu), is a row of its own
 ("keypoint_attention_bf16", phase 15's and 16's paths, where the bf16
 trunk's head must hand it views it reads without a copy), and B1's row
-counts its float32 launches; launches is their sum; max_abs_err is the
+counts its float32 launches; the head's resize ("upsample_bilinear") must
+launch in whole backbone forwards on every path, six or more a B1 launch,
+and not at all on HMR's, and each of its calls there is held against
+F.interpolate with no tolerance; launches is their sum; max_abs_err is the
 largest over phases 2, 6, 8, 10, 11, 12, 13 (13's backwards included),
-14, 15, 16 and 17; fwd_bwd_ms
+14, 15, 16 and 17 (the resize's must be 0); fwd_bwd_ms
 holds phase 13's forward + backward timings. Kernel calls are seen at the ops' CUDA implementations, so
 calls from inside a loaded torch.export program are counted and checked
 too. The smoke's wall time is printed to stderr. The line before the
@@ -261,6 +267,12 @@ CHECK_BATCHES = (1, 37, 450, LOOP_BATCH)  # the last one is timed
 CPU_FRAMES = 4
 B1_ATOL = 1e-4  # sums of 3136 fp32 products, taken in another order
 B2_ATOL = 1e-5  # sums of 217 fp32 products, taken in another order
+RESIZE = "upsample_bilinear"
+# each kernel's tolerance against its plain version on a path's inputs,
+# times max(1, max|out|); the head's resize takes ATen's arithmetic, so
+# its outputs must equal F.interpolate's bit for bit
+PATH_ATOL = {"keypoint_attention": B1_ATOL, "blendshapes": B2_ATOL,
+             RESIZE: 0.0}
 SLEEP_CYCLES = 2_000_000  # about 1 ms of the card's clock
 CPU_ATOL_M = 1e-3  # kp_3d / verts, metres: ~100 fp32 convs, two libraries
 DET_SIZE, DET_BATCH, DET_CPU_FRAMES = 416, 12, 2
@@ -380,6 +392,11 @@ SCRIPT_RUNS = (
     ("torch_gait_robustness", None, ["--steps", "30"]),
 )
 SHARE_SLACK_PCT = 1.0  # the MFU report's stage shares sum to 100 +- this
+# the deployed head's bilinear resizes, (channels, in, out) of
+# upsample_stage_*: the kernel's six launches a backbone forward
+HEAD_RESIZES = ((64, 28, 56), (128, 14, 28), (128, 28, 56), (256, 7, 14),
+                (256, 14, 28), (256, 28, 56))
+RESIZE_MIN_SHARE = 0.5  # of its byte bound, summed over the six at B = 128
 
 
 def log(*a):
@@ -469,6 +486,84 @@ def check_blendshapes(gen, flush) -> dict:
         plain_ms=time_ms(lambda: blendshapes_plain(*args), flush),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: torch.addmm(vt_row, coef, dirs), flush))
+
+
+def check_upsample_bilinear(gen, flush) -> dict:
+    """The head's six resizes at each of CHECK_BATCHES: float32, bfloat16
+    and float16 outputs equal ATen's (upsample_bilinear_plain, which is
+    F.interpolate) bit for bit. Then timed at B = LOOP_BATCH, summed over
+    the six, against its byte bound (input read once, output written once),
+    which it must reach RESIZE_MIN_SHARE of."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaitlab_torch.ops.upsample_bilinear import (upsample_bilinear_ac,
+                                                     upsample_bilinear_plain)
+
+    err = 0.0
+    for b in CHECK_BATCHES:
+        xs = [torch.randn(b, c, s, s, device="cuda", generator=gen)
+              for c, s, _ in HEAD_RESIZES]
+        differ = 0
+        for x, (_, _, o) in zip(xs, HEAD_RESIZES):
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                got = upsample_bilinear_ac(x.to(dtype), o, o)
+                want = upsample_bilinear_plain(x.to(dtype), o, o)
+                differ += int((got != want).sum())
+                err = max(err, (got.float() - want.float()).abs().max().item())
+        log(f"[kernels] upsample_bilinear B={b}: {differ} outputs of the six "
+            f"head resizes differ from ATen's in float32, bfloat16 and "
+            f"float16 (max_abs_err {err:.3e})")
+        if differ:
+            raise AssertionError("upsample_bilinear disagrees with ATen's "
+                                 f"resize at B={b}: {differ} outputs")
+    nbytes = sum(LOOP_BATCH * c * (s * s + o * o) * 4
+                 for c, s, o in HEAD_RESIZES)
+    flops = sum(LOOP_BATCH * c * o * o * 7 for c, _, o in HEAD_RESIZES)
+    b_ms, b_by = bound(nbytes, flops)
+
+    def six(fn):
+        times = [time_ms(lambda x=x, o=o: fn(x, o), flush)
+                 for x, (_, _, o) in zip(xs, HEAD_RESIZES)]
+        return sum(times), times
+
+    ms, each = six(lambda x, o: upsample_bilinear_ac(x, o, o))
+    plain_ms, _ = six(lambda x, o: upsample_bilinear_plain(x, o, o))
+    library_ms, lib_each = six(lambda x, o: F.interpolate(
+        x, size=(o, o), mode="bilinear", align_corners=True))
+    log(f"[kernels] upsample_bilinear at B={LOOP_BATCH}, (channels, in, out) "
+        f"{HEAD_RESIZES}: kernel ms {[round(t, 4) for t in each]}, ATen's "
+        f"{[round(t, 4) for t in lib_each]}; {nbytes / 1e6:.1f} MB, bound "
+        f"{b_ms:.4f} ms ({b_by}): {100 * b_ms / ms:.1f}% of it")
+    if not b_ms >= RESIZE_MIN_SHARE * ms:
+        raise AssertionError(f"upsample_bilinear at {b_ms / ms:.3f} of its "
+                             f"bound, under {RESIZE_MIN_SHARE}")
+    return dict(
+        name=RESIZE, route="cuda",
+        source="gaitlab_torch/csrc/upsample_bilinear.cu",
+        replaces="ATen's upsample_bilinear2d (no TPU kernel: gaitlab "
+                 "resizes by two matmuls, gaitlab/nn/layers.py)",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=library_ms)
+
+
+def check_resize_launches(paths: dict) -> None:
+    """The head's resize ran in whole backbone forwards (six launches each)
+    on every path, at least six for each launch of B1 (a backbone forward
+    without the head, such as BN calibration, adds six without one), and
+    never on HMR's, which has no HRNet."""
+    ratios = {}
+    for p, n in paths.items():
+        b1 = n["keypoint_attention"] + n.get("keypoint_attention_bf16", 0)
+        up = n[RESIZE]
+        ok = (up == 0 if p == "hmr"
+              else up % len(HEAD_RESIZES) == 0
+              and up >= len(HEAD_RESIZES) * b1 > 0)
+        if not ok:
+            raise AssertionError(f"{p}: {up} resize launches, {b1} of B1")
+        ratios[p] = round(up / b1, 2) if b1 else 0
+    log(f"[kernels] upsample_bilinear launches over B1's on each path: "
+        f"{ratios}")
 
 
 def check_keypoint_attention(gen, flush) -> dict:
@@ -696,13 +791,36 @@ def calibrated_model(vid: str, trackfile: str, workdir: str):
     return model, crops, ckpt
 
 
-def zeroed_counts():
-    """The kernels' wrappers, each count set to 0."""
+def kernel_wrappers() -> dict:
+    """{kernel: its wrapper}: B1, B2 and the head's resize."""
     from gaitlab_torch.ops.blendshapes import blendshapes
     from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
+    from gaitlab_torch.ops.upsample_bilinear import upsample_bilinear_ac
 
-    fns = {"blendshapes": blendshapes,
-           "keypoint_attention": keypoint_attention_fused}
+    return {"blendshapes": blendshapes,
+            "keypoint_attention": keypoint_attention_fused,
+            RESIZE: upsample_bilinear_ac}
+
+
+def forward_counts(n: int) -> dict:
+    """Launches of n backbone-and-head forwards: B1 and B2 one each, the
+    head's resize one for each of its shapes."""
+    return {"blendshapes": n, "keypoint_attention": n,
+            RESIZE: len(HEAD_RESIZES) * n}
+
+
+def train_counts(n: int) -> dict:
+    """(launches, backwards) of n train steps: B1's and B2's backwards run
+    with them; the resize's never does (the backbone is frozen)."""
+    return {k: (c, 0 if k == RESIZE else c)
+            for k, c in forward_counts(n).items()}
+
+
+def zeroed_counts():
+    """The kernels' wrappers, each count set to 0."""
+    from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
+
+    fns = kernel_wrappers()
     for fn in fns.values():
         fn.launches = fn.backwards = 0
     keypoint_attention_fused.launches_bf16 = 0
@@ -794,7 +912,7 @@ def model_loop(model, crops) -> None:
 
 def profile_loop(model, crops) -> None:
     """Where the device time of one batch goes (torch.profiler): the top
-    kernels, the two ported kernels' share, and the busy share of the
+    kernels, the port's kernels' shares, and the busy share of the
     window (profiler overhead included, so the idle share is an upper
     bound)."""
     import torch
@@ -818,9 +936,11 @@ def profile_loop(model, crops) -> None:
         f"{wall_ms:.2f} ms window ({100 * total / wall_ms:.1f}%); "
         f"{len(kernels)} kernel names")
     # B1 is attention_split_kernel and, with several splits,
-    # attention_merge_kernel; B2 is blendshapes_kernel
+    # attention_merge_kernel; B2 is blendshapes_kernel; the head's resize
+    # is upsample_kernel
     groups = {"keypoint_attention (B1)": "attention_",
-              "blendshapes (B2)": "blendshapes_kernel"}
+              "blendshapes (B2)": "blendshapes_kernel",
+              "upsample_bilinear (the head's resize)": "upsample_kernel"}
     for label, key in groups.items():
         group = [e for e in kernels if key in e.key]
         ms = sum(e.self_device_time_total for e in group) / 1e3
@@ -1088,9 +1208,11 @@ def kernel_spies(check: bool):
     alike reach through torch.ops.gaitlab.*, to record the input shapes of
     every call on the card. With `check`, each call's result is
     also held against the plain version on the same inputs (in float64,
-    rounded to float32, for a call inside a TF32 segment), and the first
+    rounded to float32, for a call inside a TF32 segment; the resize's in
+    its own dtype, which it must equal), and the first
     smooth_pose call's arguments and result are kept. Yields
     {"calls": {kernel: [(shapes, errors or None)]}, "smooth": ...}, where
+    shapes holds each tensor argument's shape and the other arguments, and
     errors holds the largest |kernel - plain|, the largest |plain|, and
     kernel's and plain's largest error against the plain version in
     float64, "streams": {kernel: [the CUDA stream of each call]} and
@@ -1101,11 +1223,13 @@ def kernel_spies(check: bool):
     from gaitlab_torch.device import float32_math, held_math_mode
     from gaitlab_torch.ops import blendshapes as b2
     from gaitlab_torch.ops import keypoint_attention as b1
+    from gaitlab_torch.ops import upsample_bilinear as resize
     from gaitlab_torch.pipeline import smoothing
 
     sites = {"keypoint_attention": (b1, "_launch",
                                     b1.keypoint_attention_plain),
-             "blendshapes": (b2, "_launch", b2.blendshapes_plain)}
+             "blendshapes": (b2, "_launch", b2.blendshapes_plain),
+             RESIZE: (resize, "_launch", resize.upsample_bilinear_plain)}
     seen = {"calls": {name: [] for name in sites}, "smooth": None,
             "streams": {name: [] for name in sites},
             "switches": {name: [] for name in sites}}
@@ -1122,16 +1246,23 @@ def kernel_spies(check: bool):
                 return out
             seen["switches"][name].append(switches)
             err = None
-            if check and held_math_mode():
+            if check:
+                wide = tuple(a.double() if torch.is_tensor(a) else a
+                             for a in args)
+            if check and not PATH_ATOL[name]:
+                # held bit for bit: the plain version in the call's own
+                # dtype (no matmul, so no TF32 switch reaches it)
+                ref, ref64 = plain(*args), plain(*wide)
+            elif check and held_math_mode():
                 # inside a TF32 segment, which no call may leave: the plain
                 # version in float64 (no TF32 there), rounded to float32
-                ref64 = plain(*(a.double() for a in args))
+                ref64 = plain(*wide)
                 ref = (tuple(r.float() for r in ref64)
                        if isinstance(ref64, tuple) else ref64.float())
             elif check:
                 with float32_math():
                     ref = plain(*args)
-                    ref64 = plain(*(a.double() for a in args))
+                    ref64 = plain(*wide)
             if check:
 
                 def max_err(xs, ys):
@@ -1146,7 +1277,8 @@ def kernel_spies(check: bool):
                            kernel64=max_err(out, ref64),
                            plain64=max_err(ref, ref64))
             seen["calls"][name].append(
-                (tuple(tuple(a.shape) for a in args), err))
+                (tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                       for a in args), err))
             seen["streams"][name].append(
                 torch.cuda.current_stream(args[0].device).stream_id)
             return out
@@ -1213,6 +1345,11 @@ def check_smooth_pose(args, kw, card_out) -> None:
             f"ms {e.key[:80]}")
 
 
+def batch(shapes: tuple) -> int:
+    """The batch of a spied call: the first size of its last tensor."""
+    return next(s for s in reversed(shapes) if isinstance(s, tuple))[0]
+
+
 def hold_calls(tag: str, checked_calls: dict, main_calls: dict,
                main_counts: dict) -> dict:
     """Every kernel call of a main path at a shape checked on a check run's
@@ -1222,11 +1359,11 @@ def hold_calls(tag: str, checked_calls: dict, main_calls: dict,
     errs = {}
     for name, checked in checked_calls.items():
         errs[name] = max(e["err"] for _, e in checked)
-        tol = B1_ATOL if name == "keypoint_attention" else B2_ATOL
+        tol = PATH_ATOL[name]
         main = [shapes for shapes, _ in main_calls[name]]
         for shapes, e in checked:
             limit = tol * max(1.0, e["scale"])
-            log(f"[{tag}] {name} B={shapes[-1][0]} on the check run's own "
+            log(f"[{tag}] {name} B={batch(shapes)} on the check run's own "
                 f"inputs: max_abs_err {e['err']:.3e} (tolerance {tol:g} x "
                 f"max(1, max|out| {e['scale']:.3g}) = {limit:.3e}); against "
                 f"float64: kernel {e['kernel64']:.3e}, plain "
@@ -1235,7 +1372,7 @@ def hold_calls(tag: str, checked_calls: dict, main_calls: dict,
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version on the path's inputs: {e}")
         log(f"[{tag}] {name}: main path batches "
-            f"{[sh[-1][0] for sh in main]}, all checked")
+            f"{[batch(sh) for sh in main]}, all checked")
         unchecked = set(main) - {sh for sh, _ in checked}
         if len(main) != main_counts[name] or unchecked:
             raise AssertionError(f"{name}: main-path shapes {unchecked} were "
@@ -1583,11 +1720,8 @@ def api_phase(det_vid: str, runner, ckpt: str, workdir: str
 
     from gaitlab_torch import api
     from gaitlab_torch.gait.features import FEATURE_NAMES
-    from gaitlab_torch.ops.blendshapes import blendshapes
-    from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
 
-    fns = {"blendshapes": blendshapes,
-           "keypoint_attention": keypoint_attention_fused}
+    fns = kernel_wrappers()
     runs, seen = {}, {}
     for tag, onepass in (("check", False), ("twopass", False),
                          ("onepass", True)):
@@ -1775,7 +1909,7 @@ def render_demos(det_vid: str, ckpt: str, workdir: str, checked: dict,
                                      f"render path were not checked")
         log(f"[render] every kernel call of this run at a shape held "
             f"against its plain version in phase 6: "
-            f"{ {k: [sh[-1][0] for sh, _ in v] for k, v in seen['calls'].items()} }")
+            f"{ {k: [batch(sh) for sh, _ in v] for k, v in seen['calls'].items()} }")
         if tag == "mesh":
             objs = sum(len(fs) for _, _, fs in os.walk(osp.join(run_dir,
                                                                 "rendered")))
@@ -2200,8 +2334,6 @@ def batchgen_phase(ckpt: str, workdir: str) -> tuple[dict, dict]:
 
     from gaitlab_torch.cli import batch_generation as bg
     from gaitlab_torch.cli import demo
-    from gaitlab_torch.ops.blendshapes import blendshapes
-    from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
     from gaitlab_torch.pipeline import openpose, video
 
     vids, annos = make_batchgen_corpus(workdir)
@@ -2225,8 +2357,7 @@ def batchgen_phase(ckpt: str, workdir: str) -> tuple[dict, dict]:
             f"{np.round(coarse[name][0], 2).tolist()}")
     medoid_timing()
 
-    fns = {"blendshapes": blendshapes,
-           "keypoint_attention": keypoint_attention_fused}
+    fns = kernel_wrappers()
     stages = {"load_model": (demo, "load_model"),
               "extract PNG": (bg, "video_to_images_fps20"),
               "crop+model": (bg, "run_grnet_on_frames"),
@@ -2390,11 +2521,8 @@ def serve_run(art: str, det_vid: str, ckpt: str, workdir: str
 
     from gaitlab_torch.cli import demo
     from gaitlab_torch.cli import serve as serve_cli
-    from gaitlab_torch.ops.blendshapes import blendshapes
-    from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
 
-    fns = {"blendshapes": blendshapes,
-           "keypoint_attention": keypoint_attention_fused}
+    fns = kernel_wrappers()
     out_dir = osp.join(workdir, "serve_out")
     with kernel_spies(check=True) as seen, no_model_code():
         for fn in fns.values():
@@ -2578,8 +2706,6 @@ def hmr_phase(workdir: str, trackfile: str) -> tuple[dict, dict]:
 
     from gaitlab_torch.device import upload
     from gaitlab_torch.nn.spin import HMR
-    from gaitlab_torch.ops.blendshapes import blendshapes
-    from gaitlab_torch.ops.keypoint_attention import keypoint_attention_fused
     from gaitlab_torch.pipeline.crop import normalize_image
     from gaitlab_torch.render import vis
 
@@ -2587,8 +2713,7 @@ def hmr_phase(workdir: str, trackfile: str) -> tuple[dict, dict]:
     x = normalize_image(upload(host_crops(frames[:LOOP_BATCH], bbox),
                                "cuda"))
     hmr = HMR.create(seed=SEED)
-    fns = {"blendshapes": blendshapes,
-           "keypoint_attention": keypoint_attention_fused}
+    fns = kernel_wrappers()
     with kernel_spies(check=True) as seen:
         for fn in fns.values():
             fn.launches = 0
@@ -2596,12 +2721,13 @@ def hmr_phase(workdir: str, trackfile: str) -> tuple[dict, dict]:
         launches = {name: fn.launches for name, fn in fns.items()}
     errs = hold_calls("hmr", {"blendshapes": seen["calls"]["blendshapes"]},
                       seen["calls"], launches)
-    errs["keypoint_attention"] = 0.0
+    errs["keypoint_attention"] = errs[RESIZE] = 0.0
     n_params = sum(p.numel() for p in hmr.module.parameters())
     log(f"[hmr] HMR (ResNet-50, 3 regressor steps, SMPL) on {hmr.device}: "
         f"{n_params / 1e6:.2f} M parameters; batch {LOOP_BATCH}: kernel "
         f"launches {launches}; kp_3d {tuple(out['kp_3d'].shape)}")
-    if launches != {"blendshapes": 1, "keypoint_attention": 0} or not all(
+    if launches != {"blendshapes": 1, "keypoint_attention": 0,
+                    RESIZE: 0} or not all(
             torch.isfinite(out[k]).all() for k in ("theta", "verts",
                                                    "kp_3d")):
         raise AssertionError(f"HMR forward: launches {launches} or "
@@ -2709,7 +2835,7 @@ def checked_errors(tag: str, calls: dict) -> dict:
     max|out|)."""
     errs = {}
     for name, checked in calls.items():
-        tol = B1_ATOL if name == "keypoint_attention" else B2_ATOL
+        tol = PATH_ATOL[name]
         errs[name] = 0.0
         for shapes, e in checked:
             if not e["err"] <= tol * max(1.0, e["scale"]):
@@ -2718,7 +2844,7 @@ def checked_errors(tag: str, calls: dict) -> dict:
             errs[name] = max(errs[name], e["err"])
         if checked:
             log(f"[{tag}] {name}: {len(checked)} calls at batch shapes "
-                f"{sorted({sh[-1][0] for sh, _ in checked})}, each held "
+                f"{sorted({batch(sh) for sh, _ in checked})}, each held "
                 f"against the plain version: largest error "
                 f"{errs[name]:.3e}")
     return errs
@@ -2755,10 +2881,9 @@ def train_main_path(ckpt: str, data: str, workdir: str) -> tuple:
         f"{TRAIN_STEPS}: {wall:.2f} s; (launches, backwards) {counts}")
     logged_losses("train", msgs)
     errs = checked_errors("train", calls)
-    for name, (n_fwd, n_bwd) in counts.items():
-        if n_fwd != TRAIN_STEPS or n_bwd != TRAIN_STEPS:
-            raise AssertionError(f"{name}: {n_fwd} launches and {n_bwd} "
-                                 f"backwards in {TRAIN_STEPS} steps")
+    if counts != train_counts(TRAIN_STEPS):
+        raise AssertionError(f"(launches, backwards) {counts} in "
+                             f"{TRAIN_STEPS} steps")
     if state.step != TRAIN_STEPS or not any(
             m == f"checkpoint saved at step {TRAIN_STEPS}" for m in msgs):
         raise AssertionError(f"train: step {state.step}, no last checkpoint")
@@ -2789,7 +2914,7 @@ def train_main_path(ckpt: str, data: str, workdir: str) -> tuple:
     errs2 = checked_errors("train", calls2)
     if (f"resumed from step {TRAIN_STEPS}" not in msgs2
             or state2.step != TRAIN_RESUME_STEPS
-            or any(c != (n, n) for c in counts2.values())):
+            or counts2 != train_counts(n)):
         raise AssertionError(f"train --resume: step {state2.step}, "
                              f"counts {counts2}")
     del state, state2
@@ -3047,7 +3172,8 @@ def train_phase(ckpt: str, workdir: str, trackfile: str) -> tuple:
     del model
     torch.cuda.empty_cache()
     gait_launches, gait_errs = train_gait_path(workdir)
-    errs = {k: max(errs[k], bwd_errs[k], gait_errs[k]) for k in errs}
+    # op_backward times B1's and B2's backwards; the resize's is ATen's
+    errs = {k: max(errs[k], bwd_errs.get(k, 0.0), gait_errs[k]) for k in errs}
     return launches, gait_launches, errs, bwd_times
 
 
@@ -3149,7 +3275,7 @@ def par_dp(model, tracks: list, workdir: str, card: list) -> dict:
         f"launches {counts}")
     errs = checked_errors("parallel", seen["calls"])
     per_stream("parallel", seen, len(card))
-    if any(n != len(card) * len(tracks) for n in counts.values()):
+    if counts != forward_counts(len(card) * len(tracks)):
         raise AssertionError(f"[parallel] launches {counts}")
     for g, (paths, bb) in zip(got, tracks):
         hold_outputs("parallel dp vs one device", g,
@@ -3209,7 +3335,7 @@ def par_gait(ckpt: str, workdir: str, trackfile: str, card: list) -> dict:
     log(f"[parallel_gait] MAX-GRNet over {len(card)} replicas, {n} frames at "
         f"bucket {PAR_BUCKET}: launches {counts} (B1 in each replica, B2 "
         f"after the corrector on the first device)")
-    if counts != {"keypoint_attention": len(card), "blendshapes": 1}:
+    if counts != {**forward_counts(len(card)), "blendshapes": 1}:
         raise AssertionError(f"[parallel_gait] launches {counts}")
     hold_outputs("parallel_gait dp vs one device", got,
                  single.forward_crops(crops, bbox=bbox, cimg=cimg),
@@ -3239,7 +3365,7 @@ def par_pp(model, tracks: list, card: list) -> None:
     n_mb = -(-len(crops) // mb)
     log(f"[parallel_pp] GRNetPipeline over {card}, {len(crops)} frames at "
         f"microbatch {mb}: launches {counts} ({n_mb} microbatches)")
-    if any(c != n_mb for c in counts.values()):
+    if counts != forward_counts(n_mb):
         raise AssertionError(f"[parallel_pp] launches {counts}")
     want = {k: v.cpu().numpy() for k, v in model.forward(crops)[0].items()}
     hold_outputs("parallel_pp vs one device", {k: v[0] for k, v in
@@ -3343,7 +3469,7 @@ def par_train(ckpt: str, workdir: str, card: list) -> tuple[dict, dict]:
         f"{len(card)} replicas: losses {l2}; one device {l1}; (launches, "
         f"backwards) {counts}")
     n = len(card) * PAR_TRAIN_STEPS
-    if any(c != (n, n) for c in counts.values()):
+    if counts != train_counts(n):
         raise AssertionError(f"[train_dp] (launches, backwards) {counts}")
     rel = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
     log(f"[train_dp] losses: largest relative difference {rel:.3e} (limit "
@@ -3454,7 +3580,8 @@ def launch_counts(fns: dict) -> dict:
     b1 = fns["keypoint_attention"]
     return {"blendshapes": fns["blendshapes"].launches,
             "keypoint_attention": b1.launches - b1.launches_bf16,
-            "keypoint_attention_bf16": b1.launches_bf16}
+            "keypoint_attention_bf16": b1.launches_bf16,
+            RESIZE: fns[RESIZE].launches}
 
 
 def held(tag: str, seen: dict, counts: dict) -> dict:
@@ -3462,7 +3589,7 @@ def held(tag: str, seen: dict, counts: dict) -> dict:
     return hold_calls(tag, seen["calls"], seen["calls"], {
         "blendshapes": counts["blendshapes"],
         "keypoint_attention": counts["keypoint_attention"]
-        + counts["keypoint_attention_bf16"]})
+        + counts["keypoint_attention_bf16"], RESIZE: counts[RESIZE]})
 
 
 @contextlib.contextmanager
@@ -3736,8 +3863,9 @@ def precision_entries(vid: str, trackfile: str, ckpt: str, workdir: str
         launches["serve_high"] = counts = launch_counts(fns)
     errs.append(held("serve run at high", seen, counts))
     # inside a program only the kernels' calls are seen: B1 in the trunk's
-    # part, B2 in SMPL's
-    switches = {k: sorted(set(v)) for k, v in seen["switches"].items()}
+    # part, B2 in SMPL's (the resize does no matmul: no switch reaches it)
+    switches = {k: sorted(set(seen["switches"][k]))
+                for k in ("keypoint_attention", "blendshapes")}
     log(f"[precision] serve run at high: (cuDNN, cuBLAS) TF32 at each "
         f"kernel's calls {switches}")
     if switches != {"keypoint_attention": [(True, True)],
@@ -3942,6 +4070,8 @@ def hold_each(tag: str, seen: dict, counts: dict) -> dict:
     scales with max(1, max|plain|) as in hold_calls), summed up in one line
     per kernel with B1's launch plan at each batch met. Returns each
     kernel's largest error."""
+    import math
+
     import torch
 
     from gaitlab_torch.ops.keypoint_attention import launch_plan
@@ -3949,19 +4079,22 @@ def hold_each(tag: str, seen: dict, counts: dict) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     want = {"blendshapes": counts["blendshapes"],
             "keypoint_attention": counts["keypoint_attention"]
-            + counts["keypoint_attention_bf16"]}
+            + counts["keypoint_attention_bf16"], RESIZE: counts[RESIZE]}
     errs = {}
     for name, calls in seen["calls"].items():
-        tol = B1_ATOL if name == "keypoint_attention" else B2_ATOL
-        worst = max((e["err"] / (tol * max(1.0, e["scale"]))
-                     for _, e in calls), default=0.0)
+        limits = [(e["err"], PATH_ATOL[name] * max(1.0, e["scale"]))
+                  for _, e in calls]
+        # the share of its tolerance each call used (the resize's is 0:
+        # any difference from the plain version is over it)
+        worst = max((err / lim if lim else math.inf if err else 0.0
+                     for err, lim in limits), default=0.0)
         errs[name] = max((e["err"] for _, e in calls), default=0.0)
         if len(calls) != want[name] or not worst <= 1.0:
             raise AssertionError(f"{tag} {name}: {len(calls)} calls held of "
                                  f"{want[name]}, worst {worst:.3f}")
         if not calls:
             continue
-        batches = sorted({shapes[-1][0] for shapes, _ in calls})
+        batches = sorted({batch(shapes) for shapes, _ in calls})
         plans = "" if name != "keypoint_attention" else (
             "; launch plan " + ", ".join(
                 f"B={b}: {launch_plan(b, 56 * 56, 192, sms).n_split} splits"
@@ -4082,7 +4215,8 @@ def main() -> int:
     with float32_math():
         rows = [check_keypoint_attention(gen, flush),
                 check_blendshapes(gen, flush),
-                check_keypoint_attention_bf16(gen, flush)]
+                check_keypoint_attention_bf16(gen, flush),
+                check_upsample_bilinear(gen, flush)]
     del flush
     for r in rows:
         log(f"[kernels] {r['name']} at B={LOOP_BATCH}: {r['ms']:.4f} ms, "
@@ -4143,8 +4277,10 @@ def main() -> int:
                                    train_errs[name], par_errs[name],
                                    prec_errs[name], bb_errs[name],
                                    script_errs[name])
-            r["fwd_bwd_ms"] = bwd_times[name]
+            # the resize's backward is ATen's: no forward + backward timed
+            r["fwd_bwd_ms"] = bwd_times.get(name)
         r["launches"] = sum(r["launches_by_path"].values())
+    check_resize_launches(paths)
     if not prec_launches["precision_bf16"]["keypoint_attention_bf16"]:
         raise AssertionError("the bf16 path never launched B1 on bf16")
     log(f"[smoke] wall {time.perf_counter() - t_start:.1f} s")

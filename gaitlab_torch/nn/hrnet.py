@@ -17,9 +17,10 @@ each in its own precision segment (layers.precision_scope): the region's
 entry of `cfg.region_precision` or, without one, the backbone's
 `precision`. The backbone computes in its weights' dtype (bf16 under the
 runner's trunk_dtype). `cfg.resize_precision` is gaitlab's precision of
-its two-matmul bilinear resize; the port's resize is ATen's bilinear
-kernel, which does no matmul and computes the same FP32 result at every
-value, so the knob is carried and resolved but changes nothing here. As
+its two-matmul bilinear resize; the port's resize is its own bilinear
+kernel (the op gaitlab::upsample_bilinear_ac, ops/upsample_bilinear.py),
+which does no matmul and computes the same FP32 result at every value, so
+the knob is carried and resolved but changes nothing here. As
 in gaitlab, a region's precision reaches only the upsampling head: the
 other three heads run at the backbone's.
 
@@ -57,6 +58,7 @@ from gaitlab_torch.nn.layers import (batch_norm, bf16_store, check_mode,
                                      conv, conv_at, depth_to_space,
                                      packed_basic_block, packing_allowed,
                                      precision_scope, space_to_depth,
+                                     UpsampleBilinear2x,
                                      upsample_bilinear_align_corners)
 
 REGIONS = ("stem", "layer1", "stage2", "stage3", "stage4", "heads")
@@ -283,12 +285,12 @@ def _stage(in_ch: tuple, scfg: StageCfg) -> nn.Sequential:
 
 
 def _up_head(ch: int, reps: int) -> nn.Sequential:
-    """reps x [Upsample x2 (bilinear, align corners), conv3x3, BN, ReLU]."""
+    """reps x [Upsample x2 (bilinear, align corners), conv3x3, BN, ReLU],
+    the resize on the port's kernel (UpsampleBilinear2x)."""
     layers = []
     for _ in range(reps):
-        layers += [nn.Upsample(scale_factor=2, mode="bilinear",
-                               align_corners=True),
-                   conv(ch, ch, 3), batch_norm(ch), nn.ReLU(inplace=True)]
+        layers += [UpsampleBilinear2x(), conv(ch, ch, 3), batch_norm(ch),
+                   nn.ReLU(inplace=True)]
     return nn.Sequential(*layers)
 
 

@@ -42,6 +42,7 @@ from torch import nn
 
 from gaitlab_torch.device import constant, held_math_mode, math_mode
 from gaitlab_torch.ops.keypoint_attention import keypoint_attention  # noqa: F401
+from gaitlab_torch.ops.upsample_bilinear import upsample_bilinear_ac
 
 BN_EPS = 1e-5  # torch BatchNorm2d default
 MODES = ("float32", "high", "default", "w2x", "a2x")
@@ -238,11 +239,19 @@ def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
 def upsample_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int
                                     ) -> torch.Tensor:
     """NCHW bilinear resize to (out_h, out_w) with align_corners=True, up or
-    down. gaitlab computes it as two interpolation matmuls; ATen's kernel
-    takes the same two-tap lerps in FP32, with no matmul to set a
-    precision for."""
-    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
-                         align_corners=True)
+    down. gaitlab computes it as two interpolation matmuls; the op
+    gaitlab::upsample_bilinear_ac (its kernel on the card, ATen's
+    F.interpolate on the CPU) takes the same two-tap lerps in FP32, with no
+    matmul to set a precision for."""
+    return upsample_bilinear_ac(x, out_h, out_w)
+
+
+class UpsampleBilinear2x(nn.Module):
+    """nn.Upsample(scale_factor=2, mode="bilinear", align_corners=True) on
+    the op gaitlab::upsample_bilinear_ac; no parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return upsample_bilinear_ac(x, 2 * x.shape[-2], 2 * x.shape[-1])
 
 
 def bf16_store(x: torch.Tensor) -> torch.Tensor:

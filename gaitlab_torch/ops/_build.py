@@ -39,6 +39,8 @@ SIGNATURES = {
                                 (_P, _L, _L, _I, _P, _L, _L, _I, _P, _L, _L,
                                  _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _P)),
+    "upsample_bilinear": ("gaitlab_upsample_bilinear",
+                          (_P, _P, *(_I,) * 14, _P)),
 }
 
 _libs: dict = {}

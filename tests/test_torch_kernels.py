@@ -16,9 +16,10 @@ JAX, runs the card tests without the repo's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Tolerances on the card: blendshapes 1e-5 (sums of 217 float32 products
-taken in another order); keypoint attention 1e-4 (sums of 3136). The
-emulations are held to 1e-5, as tests/test_pallas_ops.py holds the Pallas
-kernels.
+taken in another order); keypoint attention 1e-4 (sums of 3136); the
+bilinear resize none: it takes ATen's arithmetic, so its outputs equal
+F.interpolate's bit for bit in every dtype. The emulations are held to
+1e-5, as tests/test_pallas_ops.py holds the Pallas kernels.
 """
 
 import numpy as np
@@ -32,6 +33,9 @@ from gaitlab_torch.ops import keypoint_attention as pt_attention
 from gaitlab_torch.ops.blendshapes import blendshapes, blendshapes_plain
 from gaitlab_torch.ops.keypoint_attention import (keypoint_attention_fused,
                                                   keypoint_attention_plain)
+from gaitlab_torch.ops import upsample_bilinear as pt_upsample
+from gaitlab_torch.ops.upsample_bilinear import (upsample_bilinear_ac,
+                                                 upsample_bilinear_plain)
 
 
 @pytest.fixture
@@ -414,3 +418,261 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
                     torch.zeros(15, 207, device=cuda).t(),
                     torch.zeros(2, 10, device=cuda),
                     torch.zeros(2, 207, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the bilinear resize (ops/upsample_bilinear.py)
+# ---------------------------------------------------------------------------
+
+# (channels, in, out) of the deployed head's six resizes, then the
+# resize of the heads without convolutions (7 -> 56)
+HEAD_RESIZES = [(64, 28, 56), (128, 14, 28), (128, 28, 56), (256, 7, 14),
+                (256, 14, 28), (256, 28, 56)]
+RESIZES = HEAD_RESIZES + [(256, 7, 56)]
+
+
+def emulate_cover(plan, planes, out_h, out_w):
+    """How often the kernel's blocks and thread loops write each output of
+    `planes` (out_h, out_w) planes: block b is plane group b // chunks and
+    row chunk b % chunks; thread (tx, ty) writes column vectors tx, tx +
+    bx, ... of tile rows ty, ty + by, ..., and tile row r lies at output
+    row r0 + r of the group's first plane."""
+    cnt = np.zeros(planes * out_h * out_w, np.int64)
+    bx, by = plan.block
+    chunks = -(-out_h // plan.row_tile)
+    n_vec = out_w // plan.vec
+    cvs = np.concatenate([np.arange(tx, n_vec, bx) for tx in range(bx)])
+    cols = (cvs[:, None] * plan.vec + np.arange(plan.vec)).ravel()
+    for b in range(plan.grid):
+        g, c = divmod(b, chunks)
+        p0, r0 = g * plan.plane_tile, c * plan.row_tile
+        n_p = min(plan.plane_tile, planes - p0)
+        n_r = min(plan.row_tile, out_h - r0)
+        assert n_p > 0 and n_r > 0  # no empty block
+        rows = np.concatenate([np.arange(ty, n_p * n_r, by)
+                               for ty in range(by)])
+        starts = (p0 * out_h + r0 + rows) * out_w
+        np.add.at(cnt, (starts[:, None] + cols[None, :]).ravel(), 1)
+    return cnt
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("elt", [4, 2])
+@pytest.mark.parametrize("c,size,out", RESIZES)
+def test_upsample_plan_covers_each_output_once(n, elt, c, size, out):
+    plan = pt_upsample.launch_plan(n * c, size, size, out, out, elt)
+    assert (emulate_cover(plan, n * c, out, out) == 1).all()
+    bx, by = plan.block
+    assert bx * by <= pt_upsample.MAX_THREADS and bx <= out // plan.vec
+    # rows of several planes only where a block holds whole planes
+    assert plan.plane_tile == 1 or plan.row_tile == out
+    assert plan.cap == (size if plan.row_tile == out else
+                        pt_upsample.rows_cap(size, out, plan.row_tile))
+    assert plan.smem == pt_upsample.smem_bytes(
+        plan.plane_tile, plan.row_tile, plan.cap, size, elt)
+    assert plan.smem <= pt_upsample.MAX_SMEM
+
+
+@pytest.mark.parametrize("elt,out,vec", [(4, 56, 4), (4, 28, 4), (4, 14, 2),
+                                         (2, 56, 8), (2, 28, 4), (2, 14, 2)])
+def test_upsample_plan_stores_16_bytes_where_a_row_allows(elt, out, vec):
+    """16-byte stores at widths 56 and 28, and at width 14 the 2-wide
+    vector (8 bytes in float32) that divides the row; an output aligned to
+    4 bytes only is written a value at a time in float32."""
+    assert pt_upsample.launch_plan(256, out // 2, out // 2, out, out,
+                                   elt).vec == vec
+    plan = pt_upsample.launch_plan(3, 7, 7, 14, 14, 4, align=4)
+    assert plan.vec == 1 and (emulate_cover(plan, 3, 14, 14) == 1).all()
+
+
+def source_taps(in_size, out_size, dst):
+    """The kernel's (and ATen's) first tap and step of each destination
+    index, in float32: scale = (in - 1) / (out - 1), r = scale * dst."""
+    scale = (np.float32(in_size - 1) / np.float32(out_size - 1)
+             if out_size > 1 else np.float32(0))
+    i0 = (scale * np.asarray(dst).astype(np.float32)).astype(np.int64)
+    return i0, (i0 < in_size - 1).astype(np.int64)
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((512, 512), (64, 64)),
+                                          ((7, 9), (224, 300)),
+                                          ((100, 37), (999, 41)),
+                                          ((1000, 64), (61, 8))])
+def test_upsample_plan_stages_the_rows_its_taps_reach(in_hw, out_hw):
+    """Large planes are split into chunks of output rows: each chunk's
+    taps reach no more input rows than the block stages, and the staged
+    rows fit in shared memory."""
+    (in_h, in_w), (out_h, out_w) = in_hw, out_hw
+    plan = pt_upsample.launch_plan(2, in_h, in_w, out_h, out_w)
+    assert plan.row_tile < out_h and plan.plane_tile == 1
+    assert (emulate_cover(plan, 2, out_h, out_w) == 1).all()
+    assert plan.cap == pt_upsample.rows_cap(in_h, out_h, plan.row_tile)
+    assert plan.smem == pt_upsample.smem_bytes(1, plan.row_tile, plan.cap,
+                                               in_w, 4)
+    assert plan.smem <= pt_upsample.MAX_SMEM
+    i0, step = source_taps(in_h, out_h, np.arange(out_h))
+    for r0 in range(0, out_h, plan.row_tile):
+        last = min(out_h, r0 + plan.row_tile) - 1
+        assert i0[last] + step[last] - i0[r0] + 1 <= plan.cap
+
+
+def test_upsample_plan_refuses_rows_too_wide():
+    with pytest.raises(ValueError, match="shared memory"):
+        pt_upsample.launch_plan(1, 4, 40000, 4, 16)
+
+
+def test_upsample_plan_matches_the_kernel_source():
+    src = open(_build._target("upsample_bilinear")[0]).read()
+    assert f"constexpr int kMaxThreads = {pt_upsample.MAX_THREADS};" in src
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,size", [((2, 5, 7, 7), (14, 14)),
+                                        ((1, 3, 7, 7), (56, 56)),
+                                        ((2, 2, 9, 13), (4, 6)),
+                                        ((1, 2, 6, 6), (6, 6))])
+def test_upsample_cpu_tensors_take_the_plain_version(dtype, shape, size):
+    x = torch.randn(*shape).to(dtype)
+    n = upsample_bilinear_ac.launches
+    want = torch.nn.functional.interpolate(x, size=size, mode="bilinear",
+                                           align_corners=True)
+    torch.testing.assert_close(upsample_bilinear_ac(x, *size), want,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(upsample_bilinear_plain(x, *size), want,
+                               rtol=0, atol=0)
+    assert upsample_bilinear_ac.launches == n
+
+
+def test_upsample_cpu_gradient_is_interpolates():
+    x = torch.randn(2, 3, 7, 9, dtype=torch.float64, requires_grad=True)
+    g = torch.randn(2, 3, 14, 17, dtype=torch.float64)
+    n = upsample_bilinear_ac.backwards
+    (got,) = torch.autograd.grad(upsample_bilinear_ac(x, 14, 17), x, g)
+    (want,) = torch.autograd.grad(torch.nn.functional.interpolate(
+        x, size=(14, 17), mode="bilinear", align_corners=True), x, g)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert upsample_bilinear_ac.backwards == n + 1
+    torch.autograd.gradcheck(lambda a: upsample_bilinear_ac(a, 5, 4),
+                             (x[:1, :1, :3, :3].detach().requires_grad_(),))
+
+
+def test_upsample_exports_through_its_fake():
+    class Resize(torch.nn.Module):
+        def forward(self, x):
+            y = upsample_bilinear_ac(x, 2 * x.shape[-2], 2 * x.shape[-1])
+            return upsample_bilinear_ac(y, 56, 56)
+
+    x = torch.randn(2, 4, 7, 7)
+    ep = torch.export.export(Resize(), (x,))
+    targets = [str(n.target) for n in ep.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("gaitlab.upsample_bilinear_ac.default") == 2
+    out = [n for n in ep.graph.nodes if n.op == "output"][0].args[0][0]
+    assert tuple(out.meta["val"].shape) == (2, 4, 56, 56)
+    torch.testing.assert_close(ep.module()(x), Resize()(x), rtol=0, atol=0)
+
+
+def test_upsample_never_falls_back():
+    """A tensor neither on the CPU nor on a CUDA device is refused, and the
+    op's CUDA implementation refuses a CPU tensor."""
+    with pytest.raises(ValueError, match="CUDA device"):
+        upsample_bilinear_ac(torch.zeros(1, 2, 7, 7, device="meta"), 14, 14)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pt_upsample._launch(torch.zeros(1, 2, 7, 7), 14, 14)
+
+
+def test_deployed_head_resizes_on_the_op(monkeypatch):
+    """The deployed head keeps the reference's state_dict keys and
+    Sequential indices, holds no bilinear nn.Upsample, and resizes six
+    times a forward through the op (the head without convolutions three
+    times, through layers.upsample_bilinear_align_corners)."""
+    from gaitlab_torch.nn import hrnet, layers
+
+    net = hrnet.PoseHighResolutionNet(hrnet.HRNetCfg.w(32))
+    want = set()
+    for stage, ch, reps in ((2, 64, 1), (3, 128, 2), (4, 256, 3)):
+        seq = getattr(net, f"upsample_stage_{stage}")
+        assert len(seq) == 4 * reps
+        for k in range(reps):
+            assert isinstance(seq[4 * k], layers.UpsampleBilinear2x)
+            assert seq[4 * k + 1].weight.shape == (ch, ch, 3, 3)
+            want |= {f"upsample_stage_{stage}.{4 * k + 1}.weight"} | {
+                f"upsample_stage_{stage}.{4 * k + 2}.{key}" for key in (
+                    "weight", "bias", "running_mean", "running_var",
+                    "num_batches_tracked")}
+    assert {k for k in net.state_dict()
+            if k.startswith("upsample_stage_")} == want
+    # the fuse layers keep ATen's nearest upsampling
+    assert not [m for m in net.modules()
+                if isinstance(m, torch.nn.Upsample) and m.mode != "nearest"]
+
+    sizes = []
+
+    def spy(x, out_h, out_w):
+        sizes.append((x.shape[1], x.shape[-1], out_w))
+        return upsample_bilinear_ac(x, out_h, out_w)
+
+    monkeypatch.setattr(layers, "upsample_bilinear_ac", spy)
+    small = hrnet.HRNetCfg.w(4, modules=(1, 1, 1), blocks=1)
+    x = torch.randn(1, 3, 64, 64)
+    with torch.no_grad():
+        assert hrnet.PoseHighResolutionNet(small).eval()(x).shape == (
+            1, 60, 16, 16)
+        assert sorted(sizes) == sorted([(8, 8, 16), (16, 4, 8), (16, 8, 16),
+                                        (32, 2, 4), (32, 4, 8), (32, 8, 16)])
+        sizes.clear()
+        plain = hrnet.HRNetCfg.w(4, use_conv=False, modules=(1, 1, 1),
+                                 blocks=1)
+        hrnet.PoseHighResolutionNet(plain).eval()(x)
+        assert sorted(sizes) == [(8, 8, 16), (16, 4, 16), (32, 2, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 37, 128, 450])
+@pytest.mark.parametrize("c,size,out", HEAD_RESIZES)
+def test_upsample_kernel_on_card(cuda, n, c, size, out):
+    """At the head's six resizes, float32 equals ATen's kernel bit for bit,
+    and so do bfloat16 and float16; one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(n * c + size)
+    x = torch.randn(n, c, size, size, device=cuda, generator=g)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        xd = x.to(dtype)
+        k = upsample_bilinear_ac.launches
+        got = upsample_bilinear_ac(xd, out, out)
+        torch.cuda.synchronize()
+        assert upsample_bilinear_ac.launches == k + 1
+        assert got.dtype == dtype and got.shape == (n, c, out, out)
+        torch.testing.assert_close(got, upsample_bilinear_plain(xd, out, out),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,size", [((3, 256, 7, 7), (56, 56)),
+                                        ((2, 5, 56, 56), (28, 28)),
+                                        ((2, 3, 29, 13), (7, 50)),
+                                        ((1, 2, 512, 512), (64, 64)),
+                                        ((2, 3, 7, 9), (224, 300)),
+                                        ((2, 3, 6, 6), (6, 6)),
+                                        ((4, 3, 1, 5), (1, 9))])
+def test_upsample_kernel_any_size_on_card(cuda, shape, size):
+    """Up and down, a ragged width (one value a store), planes split into
+    chunks of rows, equal sizes (a copy) and single rows."""
+    g = torch.Generator(device=cuda).manual_seed(shape[-1])
+    x = torch.randn(*shape, device=cuda, generator=g)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = upsample_bilinear_ac(x.to(dtype), *size)
+        torch.testing.assert_close(
+            got, upsample_bilinear_plain(x.to(dtype), *size), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_upsample_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(2, 4, 7, 7, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        upsample_bilinear_ac(x.transpose(2, 3), 14, 14)
+    with pytest.raises(ValueError, match="contiguous"):
+        upsample_bilinear_ac(x[0], 14, 14)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        upsample_bilinear_ac(x.double(), 14, 14)
+    with pytest.raises(ValueError, match="CUDA device"):
+        upsample_bilinear_ac(x.to("meta"), 14, 14)
