@@ -1,12 +1,14 @@
-"""Nominal FLOPs and least bytes of the GRNet step, frozen here so that
-the program cannot change its own yardstick.
+"""Nominal FLOPs and least bytes of the GRNet step (arch/grnet.py's
+`counts`), frozen here so that the program cannot change its own
+yardstick.
 
 The layer counting is that of scripts/torch_mfu_trace.py (which agreed
 with FlopCounterMode within 1%), with two corrections:
   * FLOPs are 2 per multiply-add of the published layers in direct form,
     whatever algorithm runs (FFT, Winograd, split products), plus B1's
-    and B2's analytic counts, SMPL's products around B2 and the gait
-    corrector's products, counted from the sizes;
+    and B2's analytic counts, SMPL's products around B2 (counts/smpl.py,
+    shared by every architecture) and the gait corrector's products,
+    counted from the sizes;
   * bytes are a stage's or a kernel's own inputs read once, its outputs
     written once and its convolutions' weights once, at the
     configuration's precision; no intermediate between layers counts,
@@ -25,10 +27,9 @@ import math
 
 import torch
 
+from benchmark.counts.smpl import SMPL_JOINTS, b2_work, smpl_products
 from benchmark.reference.model import Reference
 
-SMPL_JOINTS = 24
-PROJECTED_JOINTS = 29  # the spin2 joint set
 PREDICT_LAYERS = ("head.pose_mlp", "head.shape_mlp", "head.cam_mlp")
 HR_HEAD = "backbone.upsample_stage_"
 BYTES_PER_VALUE = {"float32": 4, "tf32": 4, "bfloat16": 2}
@@ -87,25 +88,6 @@ def b1_work(rows: int, hw: int, c1: int, c2: int, j: int) -> tuple:
     (rows,j,c2) outputs written once."""
     flops = rows * j * hw * (2 * (c1 + c2) + 5)
     return flops, 4 * rows * (hw * (c1 + c2 + j) + j * (c1 + c2))
-
-
-def b2_work(rows: int, verts: int, betas: int, pose: int) -> tuple:
-    """(FLOPs, bytes) of B2: v_template + shapedirs.betas +
-    posedirs^T.pose_feature over R = 3V rows; inputs read once, the
-    (rows,V,3) output written once."""
-    r = 3 * verts
-    flops = 2 * rows * r * (betas + pose) + rows * r
-    nbytes = 4 * (r + r * betas + pose * r + rows * (betas + pose) + rows * r)
-    return flops, nbytes
-
-
-def smpl_products(rows: int, verts: int, betas: int) -> float:
-    """SMPL's products around B2 for `rows` frames: the joint regressor on
-    the template and through the shape blendshapes, skinning's W.A and the
-    per-vertex transform, the extra joints and their projection."""
-    j = SMPL_JOINTS
-    return (2 * j * verts * 3 * (1 + betas) + 2 * rows * verts * (j * 16 + 9 + 3)
-            + 2 * rows * PROJECTED_JOINTS * 9)
 
 
 def corrector_flops(t: int, sd: dict, cfg: dict) -> float:

@@ -1,6 +1,7 @@
 """Whether the timed path's outputs are correct: the kept tracks' outputs,
 as run_track returned them in the window, against the plain reference
-run afterwards on the same frames, boxes and weights.
+(the architecture's `reference_track`) run afterwards on the same
+frames, boxes and weights.
 
 Each number compared is a widest gap, relative to the reference's
 largest magnitude of that output over all kept tracks:
@@ -16,29 +17,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from benchmark.reference.model import Reference, axis_angle_to_rotmat
-from benchmark.reference.track import run_track
+from benchmark.harness.system import tf32
+from benchmark.reference.smpl import axis_angle_to_rotmat
 
 KEYS = ("verts", "joints3d", "joints2d", "betas", "pred_cam", "pred_avg",
         "pred_phase")
 
 
 def reference_outputs(kept: dict, schedule, sd: dict, smpl: dict, cfg: dict,
-                      device) -> dict:
+                      arch, device) -> dict:
     """{track index: reference outputs} for the kept tracks, float32 with
     TF32 off."""
-    from benchmark.harness.system import tf32
-
-    ref = Reference(sd, cfg)
-    run = cfg["runner"]
-    out = {}
     with tf32(False):
-        for i in sorted(kept):
-            tr = schedule[i]
-            out[i] = run_track(ref, smpl, tr.frames(), tr.boxes, tr.image_hw,
-                               cfg["crop_size"], max(run["buckets"]),
-                               run["ref_block"], device)
-    return out
+        return {i: arch.reference_track(sd, smpl, cfg, schedule[i], device)
+                for i in sorted(kept)}
 
 
 def gaps(kept: dict, refs: dict) -> dict:

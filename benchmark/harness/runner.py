@@ -1,7 +1,8 @@
 """One run of a cell: set-up, the window (traced or not), the metrics,
-the check. `Run` takes its device as given, so that the tests can drive
-it on the CPU at a tiny size; run.py alone decides that a run needs the
-card."""
+the check. What the cell's model is, how it is built and checked, comes
+from its architecture's module (`cell.arch`, arch/<arch>.py). `Run`
+takes its device as given, so that the tests can drive it on the CPU at
+a tiny size; run.py alone decides that a run needs the card."""
 
 from __future__ import annotations
 
@@ -12,15 +13,15 @@ import time
 
 import torch
 
-from benchmark.counts.flops import StepCounts
-from benchmark.harness import check, inputs, spec, system, trace, window
+from benchmark.harness import check, inputs, spec, trace, window
 
 
 class Ctx:
     """What a per-layer metric's reader gets: the configuration, the
     traced window (`trace`: a TraceView, or None without device time),
-    the hooks' row counts, the window's tracks, the step's counts, and
-    `log` for lines on standard error with the card beside them."""
+    the hooks' row counts, the window's tracks, the step's counts (the
+    architecture's `counts`), and `log` for lines on standard error with
+    the card beside them."""
 
     def __init__(self, cfg, tv, hooks, win, counts, card: str):
         self.cfg, self.trace, self.hooks, self.window = cfg, tv, hooks, win
@@ -55,7 +56,7 @@ class Ctx:
 class Run:
     def __init__(self, cell, seed: int, device, precision=None):
         self.cell, self.seed, self.device = cell, seed, torch.device(device)
-        self.cfg, self.traffic = cell.cfg, cell.traffic
+        self.cfg, self.traffic, self.arch = cell.cfg, cell.traffic, cell.arch
         self.precision = precision or self.cfg["precision"]
         self.on_card = self.device.type == "cuda"
 
@@ -64,7 +65,7 @@ class Run:
             torch.cuda.synchronize(self.device)
 
     def setup(self) -> None:
-        cfg, tr, dev = self.cfg, self.traffic, self.device
+        cfg, tr, dev, arch = self.cfg, self.traffic, self.device, self.arch
         run = cfg["runner"]
         t = time.perf_counter()
         self.pool = inputs.make_pool(self.seed, dev, tr["pool_frames"],
@@ -73,17 +74,17 @@ class Run:
         chunk = run["ingest_chunk"]
         self.schedule = inputs.Schedule(tr, self.seed, self.pool, chunk)
         extra = inputs.Schedule(tr, self.seed + 1, self.pool, chunk)
-        self.sd = inputs.make_weights(system.skeleton(cfg), self.seed, dev,
+        self.sd = inputs.make_weights(arch.skeleton(cfg), self.seed, dev,
                                       cfg.get("init", {}))
         s = cfg["smpl"]
         self.smpl = inputs.make_smpl(self.seed, dev, s["num_verts"],
                                      s["num_betas"])
         t = _lap("weights", t)
         cal = extra.extra(cfg["calibration_frames"])
-        system.calibrate(self.sd, cfg, cal.frames(), cal.boxes, dev)
+        arch.calibrate(self.sd, cfg, cal.frames(), cal.boxes, dev)
         t = _lap("calibration", t)
-        self.model, self.runner = system.build(cfg, self.sd, self.smpl, dev,
-                                               self.precision)
+        self.model, self.runner = arch.build(cfg, self.sd, self.smpl, dev,
+                                             self.precision)
         t = _lap("build", t)
         window.warm_up(self.runner, extra.extra,
                        inputs.buckets_used(tr, run["buckets"]))
@@ -110,8 +111,8 @@ class Run:
                                           "unit": m["unit"]}
                               for m in self.cell.end_to_end}
         else:
-            counts = StepCounts(self.cfg, self.sd)
-            hooks = trace.StageHooks(self.runner._live()["core"], self.cfg)
+            counts = self.arch.counts(self.cfg, self.sd)
+            hooks = trace.StageHooks(self.arch.trunk(self.runner), self.cfg)
             trace.instrument(self.runner, hooks)
             span = min(seconds, self.traffic["trace_seconds"])
             gc.collect()
@@ -151,7 +152,8 @@ class Run:
             torch.cuda.empty_cache()
         t = time.perf_counter()
         refs = check.reference_outputs(kept, self.schedule, self.sd,
-                                       self.smpl, self.cfg, self.device)
+                                       self.smpl, self.cfg, self.arch,
+                                       self.device)
         _lap(f"reference ({sum(len(self.schedule[i]) for i in kept)} "
              "frames)", t)
         ok, table = check.judge(check.gaps(kept, refs), self.cfg["limits"])

@@ -1,7 +1,8 @@
 """The manifest (BENCHMARK.json at the checkout's root) and the files it
-names, each found by name: a configuration `configs/<config>.json`, a
-traffic mix `traffic/<traffic>.json`, a per-layer metric
-`metrics/<metric>.py`."""
+names, each found by name: a configuration `configs/<config>.json`, the
+module of the architecture that the configuration names
+`arch/<arch>.py`, a traffic mix `traffic/<traffic>.json`, a per-layer
+metric `metrics/<metric>.py`."""
 
 from __future__ import annotations
 
@@ -23,9 +24,30 @@ def load_json(kind: str, name: str) -> dict:
         return json.load(f)
 
 
+def load_arch(config: str, cfg: dict):
+    """The module `benchmark.arch.<arch>` of the architecture that the
+    configuration `config` (its file's contents `cfg`) names under "arch".
+    A configuration without one, or one whose module is missing, ends
+    the run naming the file."""
+    arch = cfg.get("arch")
+    if not isinstance(arch, str) or not arch.isidentifier():
+        raise SystemExit(f"benchmark/configs/{config}.json names no "
+                         f"architecture: its \"arch\" is {arch!r}, not the "
+                         "name of a module benchmark/arch/<arch>.py")
+    module = f"benchmark.arch.{arch}"
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise SystemExit(f"benchmark/configs/{config}.json: architecture "
+                         f"{arch!r} has no module benchmark/arch/{arch}.py"
+                         ) from None
+
+
 class Cell:
-    """One entry of `workloads`, with its configuration, its traffic and
-    the metrics it reports."""
+    """One entry of `workloads`, with its configuration, its
+    architecture's module, its traffic and the metrics it reports."""
 
     def __init__(self, name: str, man: dict | None = None):
         man = manifest() if man is None else man
@@ -36,6 +58,7 @@ class Cell:
         self.name = name
         self.entry = cells[name]
         self.cfg = load_json("configs", self.entry["config"])
+        self.arch = load_arch(self.entry["config"], self.cfg)
         self.traffic = load_json("traffic", self.entry["traffic"])
         if self.traffic.get("loop") != "closed":
             raise SystemExit(f"traffic {self.entry['traffic']!r}: the "

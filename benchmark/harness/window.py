@@ -1,5 +1,5 @@
 """The measured window: one worker takes the schedule's tracks in turn,
-each through `GRNetRunner.run_track` with every output fetched (a closed
+each through the runner's `run_track` with every output fetched (a closed
 loop, as the demo's run_tracks and a clinic's batch job run), until
 `seconds` have passed; then it finishes the deck of track lengths it is
 on, so that every window holds whole decks: the same work for every

@@ -1,5 +1,5 @@
 """SMPL (body/smpl.py + kernel B2, csrc/blendshapes.cu): the least time of
-each call's blendshape sum (counts/flops.py b2_work at the forward's
+each call's blendshape sum (counts/smpl.py b2_work at the forward's
 rows) over the profiler's time of B2's kernel, by name."""
 
 from benchmark.counts import peaks

@@ -1,12 +1,12 @@
-"""Model step (nn/grnet.py + body/smpl.py): nominal FLOPs of the real
-frames the traced window completed (counts/flops.py; padded rows do not
-count), over the seconds in which the card ran an operation in that
-window (the trace's busy time, not the host's clock, which the profiler
-slows) and the card's peak for the configuration's precision
-(counts/peaks.py: TF32's 495 TFLOP/s for float32): the step's share of
-the peak while the card works. The share against the FP32 units' 67
-TFLOP/s is logged on an earlier line, for continuity with the earlier
-stage tables."""
+"""Model step (the architecture's trunk + body/smpl.py): nominal FLOPs of
+the real frames the traced window completed (the architecture's counts,
+counts/flops.py for GRNet; padded rows do not count), over the seconds
+in which the card ran an operation in that window (the trace's busy
+time, not the host's clock, which the profiler slows) and the card's
+peak for the configuration's precision (counts/peaks.py: TF32's 495
+TFLOP/s for float32): the step's share of the peak while the card
+works. The share against the FP32 units' 67 TFLOP/s is logged on an
+earlier line, for continuity with the earlier stage tables."""
 
 from benchmark.counts import peaks
 

@@ -301,20 +301,6 @@ def rot6d_to_rotmat(x):
     return torch.stack([b1, b2, torch.linalg.cross(b1, b2)], dim=-1)
 
 
-def axis_angle_to_rotmat(aa):
-    """Rodrigues: (..., 3) -> (..., 3, 3), in float64."""
-    aa = aa.double()
-    theta = torch.linalg.norm(aa, dim=-1, keepdim=True)
-    k = aa / theta.clamp_min(1e-12)
-    kx, ky, kz = k.unbind(-1)
-    zero = torch.zeros_like(kx)
-    kmat = torch.stack([zero, -kz, ky, kz, zero, -kx, -ky, kx, zero],
-                       -1).reshape(aa.shape[:-1] + (3, 3))
-    s, c = torch.sin(theta)[..., None], torch.cos(theta)[..., None]
-    eye = torch.eye(3, dtype=aa.dtype, device=aa.device)
-    return eye + s * kmat + (1 - c) * (kmat @ kmat)
-
-
 def camera_reparam(cam, bbox, cimg):
     """Crop-frame weak-perspective camera (T,3) -> image-frame camera
     parameters (T,3) of the gait branch: [s * w / 224, (box centre - image

@@ -5,7 +5,8 @@ MPII thorax) and their weak-perspective projection.
 
 SMPL's tensors come as a dict: v_template (V,3), shapedirs (V,3,10),
 posedirs (207, V*3), J_regressor (24,V), lbs_weights (V,24),
-J_regressor_extra (9,V)."""
+J_regressor_extra (9,V). `axis_angle_to_rotmat` reads SMPL's axis-angle
+pose as rotation matrices (the check compares a program's pose so)."""
 
 from __future__ import annotations
 
@@ -67,3 +68,17 @@ def regress(smpl: dict, rot, betas, cam) -> dict:
     p = joints + trans[:, None]
     joints2d = p[..., :2] / p[..., 2:3] * FOCAL / (IMG_RES / 2)
     return {"verts": verts, "joints3d": joints, "joints2d": joints2d}
+
+
+def axis_angle_to_rotmat(aa):
+    """Rodrigues: (..., 3) -> (..., 3, 3), in float64."""
+    aa = aa.double()
+    theta = torch.linalg.norm(aa, dim=-1, keepdim=True)
+    k = aa / theta.clamp_min(1e-12)
+    kx, ky, kz = k.unbind(-1)
+    zero = torch.zeros_like(kx)
+    kmat = torch.stack([zero, -kz, ky, kz, zero, -kx, -ky, kx, zero],
+                       -1).reshape(aa.shape[:-1] + (3, 3))
+    s, c = torch.sin(theta)[..., None], torch.cos(theta)[..., None]
+    eye = torch.eye(3, dtype=aa.dtype, device=aa.device)
+    return eye + s * kmat + (1 - c) * (kmat @ kmat)

@@ -4,21 +4,22 @@
         --trace <0|1>
 
 Set-up makes the weights, SMPL's tensors and the frames on the card from
---seed, gives the random BatchNorms statistics with the reference's
-code, builds the program's GRNet and GRNetRunner with them and runs one
-track at each forward size the cell's traffic uses. The window then takes
-the seed's tracks in turn through `GRNetRunner.run_track` for --seconds,
-then finishes the deck of track lengths it is on. With --trace 0 the
-last line of standard output is the cell's end-to-end metrics; with
---trace 1 the window (at most the
-traffic's `trace_seconds`) runs under torch.profiler with the
+--seed and hands them to the architecture that the cell's configuration
+names (benchmark/arch/<arch>.py): it calibrates the random weights where
+they need it (BatchNorm statistics, with the reference's code) and builds
+the program's model and runner with them; one track then runs at each
+forward size the cell's traffic uses. The window takes the seed's tracks
+in turn through the runner's `run_track` for --seconds, then finishes the
+deck of track lengths it is on. With --trace 0 the last line of standard
+output is the cell's end-to-end metrics; with --trace 1 the window (at
+most the traffic's `trace_seconds`) runs under torch.profiler with the
 configuration's stage hooks, and the line holds the per-layer metrics,
 the card's busy and window seconds and a breakdown. Either way, once the
 window has closed and its peak memory is read, the program is freed and
-the kept tracks are run through the plain reference (benchmark/reference)
-and compared; `correct` says whether every number is within its limit,
-and each number is printed beside its limit on standard error and under
-"check", the result's last key.
+the kept tracks are run through the architecture's plain reference
+(benchmark/reference) and compared; `correct` says whether every number
+is within its limit, and each number is printed beside its limit on
+standard error and under "check", the result's last key.
 
 Exits 3 without a result where CUDA is absent or has fewer cards than the
 cell asks for, and 4 where a module of JAX or of the JAX package was

@@ -35,7 +35,8 @@ import importlib, pkgutil
 import benchmark
 from benchmark.harness import spec, runner, system, trace, check, inputs
 from benchmark.harness import window
-from benchmark.counts import flops, peaks
+from benchmark.counts import flops, peaks, smpl
+from benchmark.arch import grnet
 import benchmark.run
 for m in spec.manifest()["per_layer"]:
     spec.reader(m["name"])

@@ -28,16 +28,23 @@ def tiny_cell(cell_name: str = "grnet_w32.clinic_tracks",
     if cfg["model"].get("use_gait_feat"):
         names += ["pred_avg", "pred_phase"]
     cfg["limits"] = {f"{k}_gap": TINY_LIMIT for k in names}
-    tr = spec.load_json("traffic", entry["traffic"])
-    tr.update(frame_hw=[120, 160], pool_frames=40, check_share=0.5,
-              trace_seconds=1.5,
-              length={"dist": "uniform", "min": length[0],
-                      "max": length[1], "deck": 4})
+    tr = tiny_traffic(entry["traffic"], length)
     return types.SimpleNamespace(
-        name=cell_name, cfg=cfg, traffic=tr, chips=1,
+        name=cell_name, cfg=cfg, arch=spec.load_arch(entry["config"], cfg),
+        traffic=tr, chips=1,
         end_to_end=[m for m in man["end_to_end"]
                     if m.get("workloads") is None
                     or cell_name in m["workloads"]],
         per_layer=[m for m in man["per_layer"]
                    if m.get("workloads") is None
                    or cell_name in m["workloads"]])
+
+
+def tiny_traffic(name: str, length=(3, 20)) -> dict:
+    """The traffic mix `name` at 120x160 frames and 3-20-frame tracks."""
+    tr = spec.load_json("traffic", name)
+    tr.update(frame_hw=[120, 160], pool_frames=40, check_share=0.5,
+              trace_seconds=1.5,
+              length={"dist": "uniform", "min": length[0],
+                      "max": length[1], "deck": 4})
+    return tr
