@@ -21,22 +21,24 @@ import numpy as np
 
 def load_pipeline(ckpt: str = "", smpl_model: Optional[str] = None,
                   use_gait_feat: bool = False, precision: str = "float32",
-                  device=None, mesh=None):
+                  device=None, mesh=None, arch: str = "grnet"):
     """(model, runner) ready for repeated video analysis, on `device`
     (None: the card). `mesh` (parallel.make_mesh) splits each bucket over
     replicas on its data axis. `precision` is the runner's: "float32"
     (TF32 off, the default), "high" or "default" (nn/layers.py says what
     each means on the card). With `use_gait_feat`, a reference checkpoint
     fills the trunk and the gait corrector keeps its random init (no
-    reference checkpoint carries one)."""
+    reference checkpoint carries one). `arch="hmr2"` builds HMR 2.0 with
+    random weights (cli/demo.build_model), cropped at its 256 px."""
     from gaitlab_torch.cli.demo import build_model
     from gaitlab_torch.pipeline.runner import PRECISIONS, GRNetRunner
 
     if precision not in PRECISIONS:  # before building a model
         raise ValueError(f"precision={precision!r}: use one of {PRECISIONS}")
     model = build_model(ckpt, smpl_model, device=device,
-                        use_gait_feat=use_gait_feat)
-    return model, GRNetRunner(model, precision=precision, mesh=mesh)
+                        use_gait_feat=use_gait_feat, arch=arch)
+    return model, GRNetRunner(model, precision=precision, mesh=mesh,
+                              crop_size=model.module.img_res)
 
 
 def analyze_video(vid_file: str, ckpt: str = "",

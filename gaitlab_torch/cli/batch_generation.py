@@ -205,7 +205,7 @@ def prepare_data(fv: str, vid_folder: str, outpath: str,
 
     args = argparse.Namespace(ckpt=pretrained_file or "",
                               smpl_model=smpl_model, cfg=None,
-                              cpu_only=cpu_only)
+                              cpu_only=cpu_only, arch="grnet")
     model = demo.load_model(args, None)
     # the database holds only joints3D: the vertices are not read back
     rkw = {"precision": precision} if precision else {}

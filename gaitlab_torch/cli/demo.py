@@ -37,10 +37,11 @@ import time
 import numpy as np
 
 MIN_NUM_FRAMES = 25
+ARCHS = ("grnet", "hmr2")  # --arch: GRNet, or HMR 2.0 (nn/hmr2.py)
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The reference's argparse surface, flag for flag."""
+    """The reference's argparse surface, flag for flag, and --arch."""
     p = argparse.ArgumentParser()
     p.add_argument("--vid_file", type=str, default="",
                    help="input video path")
@@ -111,6 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "over every visible card; 'pp' runs a 2-stage "
                         "pipeline (backbone group | head+SMPL group) over "
                         "them.")
+    p.add_argument("--arch", type=str, default="grnet", choices=ARCHS,
+                   help="the model: grnet (GRNet, the reference's) or hmr2 "
+                        "(HMR 2.0's ViT-H trunk and transformer decoder, "
+                        "random weights).")
     return p
 
 
@@ -130,21 +135,35 @@ def check_render_deps(args) -> None:
 def load_model(args, cfg):
     """GRNet (synthetic SMPL unless a model file is found) with random
     weights, or a reference GRNet checkpoint's weights, on the card (the CPU
-    with --cpu_only)."""
+    with --cpu_only); HMR 2.0 with --arch hmr2."""
     return build_model(args.ckpt, args.smpl_model,
-                       device="cpu" if args.cpu_only else None)
+                       device="cpu" if args.cpu_only else None,
+                       arch=args.arch)
+
 
 
 def build_model(ckpt: str = "", smpl_model=None, device=None,
-                use_gait_feat: bool = False):
+                use_gait_feat: bool = False, arch: str = "grnet"):
     """load_model's body, for the API too: `device` None is the card. With
     the gait branch, a reference checkpoint fills the trunk and the
-    corrector keeps its random init (no reference checkpoint has one)."""
+    corrector keeps its random init (no reference checkpoint has one).
+    `arch` "hmr2" builds HMR 2.0 (nn/hmr2.py) with random weights: the
+    import of 4D-Humans' published checkpoint is not written yet."""
     from gaitlab_torch.body import smpl as body_smpl
     from gaitlab_torch.config import SMPL_DATA_DIR
     from gaitlab_torch.nn.grnet import GRNet
     from gaitlab_torch.weights.torch_import import load_grnet_ckpt
 
+    if arch not in ARCHS:
+        raise ValueError(f"arch={arch!r}: use one of {ARCHS}")
+    if arch == "hmr2" and use_gait_feat:
+        raise ValueError("the gait corrector is GRNet's (MAX-GRNet): "
+                         "arch='hmr2' has none")
+    if arch == "hmr2" and ckpt:
+        raise NotImplementedError(
+            f"{ckpt}: the import of 4D-Humans' published HMR 2.0 checkpoint "
+            "is not written yet; run arch='hmr2' without a checkpoint "
+            "(random weights)")
     smpl_params = None
     smpl_path = smpl_model
     if smpl_path is None:
@@ -159,6 +178,12 @@ def build_model(ckpt: str = "", smpl_model=None, device=None,
         print("WARNING: no SMPL model file found; using synthetic SMPL "
               "parameters (outputs are structurally valid, not meaningful).")
 
+    if arch == "hmr2":
+        from gaitlab_torch.nn.hmr2 import HMR2Core
+
+        print("WARNING: HMR 2.0 runs with random weights.")
+        return GRNet.create(smpl_params=smpl_params, joint_mode="spin2",
+                            device=device, trunk=HMR2Core)
     model = GRNet.create(smpl_params=smpl_params, joint_mode="spin2",
                          device=device, use_gait_feat=use_gait_feat)
     if ckpt and osp.isfile(ckpt):
@@ -299,6 +324,15 @@ def _runner_kwargs(args) -> dict:
     return kw
 
 
+def _runner(args, model):
+    """The demo's runner, at the trunk's crop (224 for GRNet, 256 for HMR
+    2.0) unless `_runner_kwargs` names one."""
+    from gaitlab_torch.pipeline.runner import GRNetRunner
+
+    kw = {"crop_size": model.module.img_res, **_runner_kwargs(args)}
+    return GRNetRunner(model, bbox_scale=1.0, **kw)
+
+
 def _save(args, grnet_results: dict, output_path: str) -> str:
     """The pkl, named as the reference names it (a counter on repeats);
     returns its file name."""
@@ -368,9 +402,8 @@ def run_onepass(args, model, video_file, orig_width, orig_height,
     union of the tracks' frame ids."""
     from gaitlab_torch.pipeline import detect
     from gaitlab_torch.pipeline import stream as stream_mod
-    from gaitlab_torch.pipeline.runner import GRNetRunner
 
-    runner = GRNetRunner(model, bbox_scale=1.0, **_runner_kwargs(args))
+    runner = _runner(args, model)
     grnet_time = time.time()
     res = stream_mod.run_video_onepass(
         runner, video_file, detector=detect.get_detector(
@@ -391,9 +424,8 @@ def run_tracks(args, model, tracking_results, image_folder, video_file,
     """GRNet on each tracklet: frames from the folder's PNGs, or decoded
     from the video when there is no folder (--stream)."""
     from gaitlab_torch.pipeline import video
-    from gaitlab_torch.pipeline.runner import GRNetRunner
 
-    runner = GRNetRunner(model, bbox_scale=1.0, **_runner_kwargs(args))
+    runner = _runner(args, model)
     image_files = (np.array(video.list_image_files(image_folder))
                    if image_folder else None)
     print("Running Model on each tracklet...")

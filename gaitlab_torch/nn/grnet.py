@@ -60,7 +60,14 @@ class GRNetCore(nn.Module):
     `pack_low_channel`, `backbone_cast_after`, `backbone_act_store` and
     `stem_s2d`, kept in the backbone's cfg: a view at other modes
     (`with_precision`), a copy and a replica keep them, and
-    `with_backbone` makes a view with others."""
+    `with_backbone` makes a view with others.
+
+    It is the runner's trunk (pipeline/runner.py's trunk protocol):
+    `use_gait_feat`, `img_res`, `at_modes`, `segments`, `run_segments`."""
+
+    # the crop size vp_regress projects at (PARE's and SPIN's 224, whatever
+    # crop a test runs), and the entry points' crop
+    img_res = 224
 
     def __init__(self, num_joints: int = 24, num_input_features: int = 480,
                  num_features_pare: int = 128, num_features_smpl: int = 64,
@@ -104,6 +111,41 @@ class GRNetCore(nn.Module):
     @property
     def backbone_resize_precision(self) -> str:
         return self.backbone.cfg.resize_precision
+
+    def region_precision_at(self, precision: str) -> tuple:
+        """The backbone's per-region modes under the runner's `precision`:
+        the module's own override wins; else ("heads", "w2x") under "high"
+        (gaitlab's upsample-head convs at two passes), and no region
+        otherwise."""
+        if self.backbone_region_precision:
+            return tuple(self.backbone_region_precision)
+        return (("heads", "w2x"),) if precision == "high" else ()
+
+    def resize_precision_at(self, precision: str) -> str:
+        """gaitlab's resize precision under the runner's `precision`: a
+        non-default module setting wins, else "high" under "high" and
+        "highest" otherwise. The port's resize does no matmul, so this only
+        travels (nn/hrnet.py)."""
+        if self.backbone_resize_precision != "highest":
+            return self.backbone_resize_precision
+        return "high" if precision == "high" else "highest"
+
+    def at_modes(self, precision: str, head_precision: Optional[str]
+                 ) -> "GRNetCore":
+        """This trunk at the runner's `precision` and (resolved)
+        `head_precision`, the backbone's regions and resize resolved from
+        them: itself when it runs at them already, else a `with_precision`
+        view. A view is made even when the targets are None or (): "inherit"
+        must clear a module-level override, or a module built with
+        head_precision="default" would keep its head at one TF32 pass inside
+        a float32 run."""
+        want = (precision, head_precision, self.region_precision_at(precision),
+                self.resize_precision_at(precision))
+        if want == (self.precision, self.head_precision,
+                    tuple(self.backbone_region_precision),
+                    self.backbone_resize_precision):
+            return self
+        return self.with_precision(*want)
 
     def with_precision(self, precision: str = "float32",
                        head_precision: Optional[str] = None,
@@ -370,14 +412,16 @@ class BucketForward(nn.Module):
                                        state.items()}, (carry, names))
         if REGRESS not in self.names:
             return carry
-        out = vp_regress(smpl, carry, joint_mode=self.joint_mode)[0]
+        out = vp_regress(smpl, carry, joint_mode=self.joint_mode,
+                         img_res=self.core.img_res)[0]
         return {k: v if k == "pred_avg" else v[0]
                 for k, v in out.items() if k in BUCKET_KEYS}
 
 
 @dataclass
 class GRNet:
-    """The trunk module, the SMPL tensors and the device they live on."""
+    """The trunk module (a GRNetCore, or any trunk of the runner's protocol:
+    nn/hmr2.py's HMR2Core), the SMPL tensors and the device they live on."""
 
     module: GRNetCore
     smpl: body_smpl.SMPLParams
@@ -387,14 +431,15 @@ class GRNet:
     @staticmethod
     def create(smpl_params: Optional[body_smpl.SMPLParams] = None,
                seed: int = 0, joint_mode: str = "spin2", device=None,
-               **module_kwargs) -> "GRNet":
-        """Random weights from `seed`, in eval mode, on `device` (default:
-        the card; raises when CUDA is absent and the CPU was not asked
-        for). Without `smpl_params`, synthetic SMPL tensors are used."""
+               trunk: type = GRNetCore, **module_kwargs) -> "GRNet":
+        """A `trunk` (GRNetCore by default) of `module_kwargs` with random
+        weights from `seed`, in eval mode, on `device` (default: the card;
+        raises when CUDA is absent and the CPU was not asked for). Without
+        `smpl_params`, synthetic SMPL tensors are used."""
         device = resolve_device(device)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            module = GRNetCore(**module_kwargs)
+            module = trunk(**module_kwargs)
         if smpl_params is None:
             smpl_params = body_smpl.synthetic_smpl_params()
         return GRNet(module=module.to(device).eval(),
@@ -432,4 +477,5 @@ class GRNet:
             with span("model/regress"):
                 return vp_regress(self.smpl, patt, batch_size=b,
                                   J_regressor=J_regressor,
-                                  joint_mode=self.joint_mode)
+                                  joint_mode=self.joint_mode,
+                                  img_res=self.module.img_res)

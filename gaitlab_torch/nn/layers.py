@@ -211,6 +211,14 @@ def einsum_passes(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a, b)
 
 
+def matmul_passes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.matmul whose product follows the thread's `conv_mode`, as
+    `Linear` does."""
+    if _CONV_MODE.get() == "high" and a.dtype == torch.float32:
+        return _passes(torch.matmul, a, b, "high")
+    return torch.matmul(a, b)
+
+
 def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """An einsum gaitlab pins at HIGHEST (full float32) whatever the
     segment's mode. On the card inside a TF32 segment it runs as three

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from gaitlab_torch.device import upload
-from gaitlab_torch.nn.grnet import vp_regress
+from gaitlab_torch.nn.grnet import GRNetCore, vp_regress
 from gaitlab_torch.parallel import mesh as mesh_mod
 from gaitlab_torch.parallel.replicas import Replicas, scatter
 
@@ -130,7 +130,13 @@ class GRNetPipeline:
     def check_devices(model, n_stage0: Optional[int] = None,
                       devices: Optional[Sequence] = None) -> tuple:
         """(devices, n_stage0) for a pipeline of `model`, or ValueError (the
-        gait branch, fewer than two devices, a group left empty)."""
+        gait branch, a trunk other than GRNet's, fewer than two devices, a
+        group left empty)."""
+        if not isinstance(model.module, GRNetCore):
+            raise ValueError(
+                "parallel='pp' splits GRNet's HRNet backbone from its head; "
+                f"a {type(model.module).__name__} trunk has no such split — "
+                "run it with parallel='dp' or on one device")
         if model.module.use_gait_feat:
             raise ValueError(
                 "GRNetPipeline parallelises the per-frame trunk; the gait "

@@ -1,11 +1,11 @@
-"""Track-level inference: frames -> crops -> bucketed GRNet -> numpy.
+"""Track-level inference: frames -> crops -> bucketed trunk + SMPL -> numpy.
 
 Counterpart of gaitlab/pipeline/runner.py. Frames arrive in
 chunks (from memory, from image files through the prefetching
 native loader, `ingest_chunk` at a time, or as a video reader decodes
 them) and are cropped on the device (small
 frames: only full frames cross to the card) or with cv2 on the host (large
-frames: only 224^2 crops cross). The model runs at a small set of batch
+frames: only crop_size^2 crops cross). The model runs at a small set of batch
 sizes ("buckets"), with the tail padded by repeating its last crop, so
 that every forward has one of a few shapes. The weights stay on the
 model's device, and with a mesh (`parallel="dp"`) each bucket is split
@@ -35,6 +35,23 @@ data-parallel replicas and SMPL's tensors on their devices, the
 pipeline) is rebuilt whenever `model.module` or `model.smpl` is
 reassigned or one of their tensors has changed in place (a weight
 reload), and the pipeline is built at first use, as gaitlab does.
+
+The trunk: `model.module` is any nn.Module with these members, which is
+all the runner reads of it (GRNet's GRNetCore and HMR 2.0's HMR2Core,
+nn/hmr2.py):
+  * `use_gait_feat`: whether forwards take bbox, cimg and n_valid rows and
+    give pred_avg and pred_phase;
+  * `img_res`: the crop size that vp_regress projects at, and the crop the
+    entry points give the runner;
+  * `at_modes(precision, head_precision)`: the trunk at the runner's
+    resolved modes (itself, or a view sharing its tensors; GRNetCore
+    resolves its backbone's regions and resize from them);
+  * `segments()` and `run_segments(carry, names)`: the forward as named
+    precision segments, each a span `model/<name>`; calling the module
+    runs them all, once a bucket's forward.
+A mode that a trunk cannot run raises ValueError where the runner is made
+or its first forward runs, never falls back (the "pp" pipeline splits
+GRNet's backbone from its head, so it takes a GRNetCore only).
 
 `_forward(n, raw_uint8)` is one bucket's forward as a module whose weights
 are inputs (gaitlab's jitted `GRNetRunner._forward`): `serve.py` exports
@@ -79,7 +96,7 @@ TRUNK_DTYPES = {"bfloat16": torch.bfloat16}
 class GRNetRunner:
     model: GRNet
     buckets: Optional[Sequence[int]] = None  # None -> $GAITLAB_BUCKETS or default
-    crop_size: int = 224
+    crop_size: int = 224  # the entry points give the trunk's img_res
     bbox_scale: float = 1.0
     ingest_chunk: int = 32   # full-res frames decoded / staged at once
     # "float32" (TF32 off; the port's default, where gaitlab's is "high"),
@@ -170,24 +187,16 @@ class GRNetRunner:
         return head_prec
 
     def resolved_region_precision(self) -> tuple:
-        """The backbone's per-region modes: a module-level override wins;
-        else ("heads", "w2x") under "high" (gaitlab's upsample-head convs
-        at two passes), and no region otherwise."""
-        mod_regions = tuple(self.model.module.backbone_region_precision)
-        if mod_regions:
-            return mod_regions
-        if self.precision == "high":
-            return (("heads", "w2x"),)
-        return ()
+        """GRNet's backbone per-region modes (GRNetCore.region_precision_at);
+        a trunk without HRNet's regions has none."""
+        at = getattr(self.model.module, "region_precision_at", None)
+        return () if at is None else at(self.precision)
 
     def resolved_resize_precision(self) -> str:
-        """gaitlab's resize precision: a non-default module setting wins,
-        else "high" under "high" and "highest" otherwise. The port's
-        resize does no matmul, so this only travels (nn/hrnet.py)."""
-        mod = self.model.module.backbone_resize_precision
-        if mod != "highest":
-            return mod
-        return "high" if self.precision == "high" else "highest"
+        """GRNet's resize precision (GRNetCore.resize_precision_at); a trunk
+        without HRNet's resizes reads "highest"."""
+        at = getattr(self.model.module, "resize_precision_at", None)
+        return "highest" if at is None else at(self.precision)
 
     @property
     def _dp(self) -> Optional[tuple]:
@@ -195,20 +204,10 @@ class GRNetRunner:
         return self._live().get("dp")
 
     def _resolved_module(self):
-        """The model's trunk at the resolved modes (GRNetCore.with_precision:
-        a view sharing the model's weights). Made even when the targets
-        are None or (): "inherit" must clear a module-level override, or a
-        module built with head_precision="default" would keep its head at
-        one TF32 pass inside a float32 run."""
-        module = self.model.module
-        want = (self.precision, self.resolved_head_precision(),
-                self.resolved_region_precision(),
-                self.resolved_resize_precision())
-        if want == (module.precision, module.head_precision,
-                    tuple(module.backbone_region_precision),
-                    module.backbone_resize_precision):
-            return module
-        return module.with_precision(*want)
+        """The model's trunk at the resolved modes (its `at_modes`: itself
+        or a view sharing the model's weights)."""
+        return self.model.module.at_modes(self.precision,
+                                          self.resolved_head_precision())
 
     def _weights_state(self) -> tuple:
         """What tells a weight change: the identity of the module and of
@@ -315,7 +314,8 @@ class GRNetRunner:
         def whole(core, smpl, x):
             patt = core(nchw(x))
             with span("model/regress", parent=parent):
-                out = vp_regress(smpl, patt, joint_mode=joint_mode)[0]
+                out = vp_regress(smpl, patt, joint_mode=joint_mode,
+                                 img_res=core.img_res)[0]
             return {k: out[k] for k in OUTPUT_KEYS}
 
         def frames(core, x, bb, ci):
@@ -371,7 +371,7 @@ class GRNetRunner:
         return session.finish()
 
     def forward_crops(self, crops, bbox=None, cimg=None) -> dict:
-        """Normalized NHWC crops (N,224,224,3) -> output dict of numpy
+        """Normalized NHWC crops (N,crop,crop,3) -> output dict of numpy
         arrays, run at bucket sizes. bbox/cimg (N,4)/(N,2) feed the gait
         branch when the model has one."""
         return self._forward_stream([crops], bbox=bbox, cimg=cimg)

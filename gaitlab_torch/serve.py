@@ -330,6 +330,14 @@ class ServingRunner(GRNetRunner):
     def _live(self, check: bool = True) -> dict:
         return {}  # the programs and their weights derive from no model
 
+    def resolved_region_precision(self) -> tuple:
+        """The exported programs' backbone regions (the manifest's)."""
+        return tuple(tuple(r) for r in
+                     self.serving.manifest["region_precision"])
+
+    def resolved_resize_precision(self) -> str:
+        return self.serving.manifest["resize_precision"]
+
     def _forward(self, n: int, raw_uint8: bool = False):
         if bool(raw_uint8) != self.takes_uint8:
             raise ValueError(
@@ -367,11 +375,7 @@ def load_runner(path: str, device=None, **runner_kwargs) -> ServingRunner:
     # the only model attributes the runner's paths read; the modes come
     # back from the manifest (gaitlab's load_runner reads them so)
     model = SimpleNamespace(
-        module=SimpleNamespace(
-            use_gait_feat=bool(man["gait"]),
-            backbone_region_precision=tuple(
-                tuple(r) for r in man["region_precision"]),
-            backbone_resize_precision=man["resize_precision"]),
+        module=SimpleNamespace(use_gait_feat=bool(man["gait"])),
         smpl=serving.smpl, device=serving.device,
         joint_mode=man["joint_mode"])
     kw = dict(buckets=tuple(man["buckets"]), crop_size=man["crop_size"],
