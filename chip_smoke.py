@@ -15,13 +15,21 @@ Phases, each of which exits non-zero on failure:
              on the bf16 kernel's values); the head's bilinear resize at its
              six shapes, equal to ATen's bit for bit in float32, bfloat16
              and float16, timed over the six against its byte bound (at
-             least RESIZE_MIN_SHARE of it)
+             least RESIZE_MIN_SHARE of it); HMR 2.0's four ViT block
+             linears (csrc/vit_linear.cu) at buckets 32 and 450: against
+             the plain version, error against float64 beside cuBLAS
+             SGEMM's and one TF32 pass's (at most twice SGEMM's), card ms
+             of kernel, plain version and SGEMM, nominal TFLOP/s (at least
+             VIT_MIN_TFLOPS at 450)
   3. path    run `gaitlab_torch.cli.demo --tracking_path` at full width
              (HRNet-W32 + PARE + synthetic SMPL, 224 crops) on a synthetic
              clip with two tracks (150 and 60 frames: two buckets, tail
              padding), with random weights whose BN statistics come from one
              train-mode pass over the clip's crops; both kernels must have
              launched; the pkl must have the demo schema with finite values;
+             then `demo --arch hmr2` (HMR 2.0, random weights) on the same
+             tracks: 4 x 32 ViT linears on their kernel a forward, each
+             call held against the plain version;
              then the model loop's throughput at batch 128 and a profile of
              one batch (device time by kernel)
   4. cpu     the same weights on 4 frames, card against CPU (plain paths):
@@ -222,7 +230,10 @@ trunk's head must hand it views it reads without a copy), and B1's row
 counts its float32 launches; the head's resize ("upsample_bilinear") must
 launch in whole backbone forwards on every path, six or more a B1 launch,
 and not at all on HMR's, and each of its calls there is held against
-F.interpolate with no tolerance; launches is their sum; max_abs_err is the
+F.interpolate with no tolerance; the ViT linears' kernel ("vit_linear_f32")
+launches 128 times a forward on phase 3's `demo --arch hmr2`
+("hmr2_demo") and never on a GRNet path (its count, reset after that
+demo, is still 0 after all of them); launches is their sum; max_abs_err is the
 largest over phases 2, 6, 8, 10, 11, 12, 13 (13's backwards included),
 14, 15, 16 and 17 (the resize's must be 0); fwd_bwd_ms
 holds phase 13's forward + backward timings. Kernel calls are seen at the ops' CUDA implementations, so
@@ -397,6 +408,17 @@ SHARE_SLACK_PCT = 1.0  # the MFU report's stage shares sum to 100 +- this
 HEAD_RESIZES = ((64, 28, 56), (128, 14, 28), (128, 28, 56), (256, 7, 14),
                 (256, 14, 28), (256, 28, 56))
 RESIZE_MIN_SHARE = 0.5  # of its byte bound, summed over the six at B = 128
+VIT = "vit_linear_f32"
+# HMR 2.0's ViT-H block linears (name, N, K) at buckets of 192-token rows
+VIT_SHAPES = (("qkv", 3840, 1280), ("proj", 1280, 1280),
+              ("fc1", 5120, 1280), ("fc2", 1280, 5120))
+VIT_BUCKETS = (32, 450)  # the smallest and the largest; the last is summed
+VIT_TOKENS = 192
+VIT_BLOCKS = 32
+# the kernel against its plain version, times max(1, max|out|): the same
+# TF32-exact products, FP32 sums in another order
+VIT_ATOL = 1e-5
+VIT_MIN_TFLOPS = 90.0  # nominal (2MNK over its time) at the largest bucket
 
 
 def log(*a):
@@ -545,6 +567,78 @@ def check_upsample_bilinear(gen, flush) -> dict:
                  "resizes by two matmuls, gaitlab/nn/layers.py)",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=library_ms)
+
+
+def check_vit_linear(gen, flush) -> dict:
+    """HMR 2.0's four block linears at VIT_BUCKETS x 192 tokens: the kernel
+    against its plain version (VIT_ATOL), and the kernel's, cuBLAS SGEMM's
+    (TF32 off) and one TF32 pass's relative error against float64
+    (||y - y64|| / ||y64||; the kernel's at most twice SGEMM's); card ms of
+    the kernel, the plain version and SGEMM (`library_ms`, a yardstick
+    only) and nominal TFLOP/s, at least VIT_MIN_TFLOPS at the largest
+    bucket. The row sums the four shapes at the largest bucket, against
+    the three TF32 passes' bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaitlab_torch.ops.vit_linear import (tf32_rna, tf32_trunc,
+                                              vit_linear_f32,
+                                              vit_linear_plain)
+
+    err = 0.0
+    row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0)
+    for rows in VIT_BUCKETS:
+        m = rows * VIT_TOKENS
+        for name, n, k in VIT_SHAPES:
+            x = torch.randn(m, k, device="cuda", generator=gen)
+            if k == 5120:  # fc2 reads the GELU's outputs
+                x = F.gelu(x)
+            w = torch.randn(n, k, device="cuda", generator=gen) * 0.02
+            b = torch.randn(n, device="cuda", generator=gen) * 0.02
+            got, want = vit_linear_f32(x, w, b), vit_linear_plain(x, w, b)
+            e = (got - want).abs().max().item()
+            err = max(err, e)
+            if not e <= VIT_ATOL * max(1.0, want.abs().max().item()):
+                raise AssertionError(f"vit_linear {name} M={m}: {e:.3e} "
+                                     f"from its plain version")
+            ref = F.linear(x.double(), w.double(), b.double())
+
+            def rel(y):
+                return ((y.double() - ref).norm() / ref.norm()).item()
+
+            e_k, e_sgemm = rel(got), rel(F.linear(x, w, b))
+            e_tf32 = rel(F.linear(tf32_rna(x), tf32_trunc(w), b))
+            del ref, got, want
+            ms = time_ms(lambda: vit_linear_f32(x, w, b), flush)
+            plain_ms = time_ms(lambda: vit_linear_plain(x, w, b), flush,
+                               reps=5, warm=1)
+            library_ms = time_ms(lambda: F.linear(x, w, b), flush)
+            flops = 2 * m * n * k
+            log(f"[kernels] vit_linear {name} M={m} N={n} K={k}: kernel "
+                f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s nominal), "
+                f"plain {plain_ms:.4f}, SGEMM {library_ms:.4f} "
+                f"({flops / library_ms / 1e9:.1f}); error against float64: "
+                f"kernel {e_k:.3e}, SGEMM {e_sgemm:.3e}, one TF32 pass "
+                f"{e_tf32:.3e}")
+            if not e_k <= 2 * e_sgemm:
+                raise AssertionError(f"vit_linear {name} M={m}: error "
+                                     f"{e_k:.3e} over twice SGEMM's")
+            if rows == VIT_BUCKETS[-1]:
+                if flops / ms / 1e9 < VIT_MIN_TFLOPS:
+                    raise AssertionError(f"vit_linear {name} M={m}: "
+                                         f"{flops / ms / 1e9:.1f} TFLOP/s")
+                for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                               ("library_ms", library_ms), ("flops", flops),
+                               ("nbytes", 4 * (m * k + 2 * n * k + m * n))):
+                    row[key] += v
+            del x, w, b
+    b_ms, b_by = bound(row["nbytes"], 3 * row["flops"], H100_TF32_FLOP_PER_S)
+    return dict(
+        name=VIT, route="cuda", source="gaitlab_torch/csrc/vit_linear.cu",
+        replaces="cuBLAS's FFMA SGEMM behind F.linear in HMR 2.0's ViT "
+                 "blocks (no TPU kernel: gaitlab leaves the products to XLA)",
+        max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=b_ms, bound_by=b_by, library_ms=row["library_ms"])
 
 
 def check_resize_launches(paths: dict) -> None:
@@ -884,6 +978,59 @@ def run_demo(vid: str, trackfile: str, ckpt: str, workdir: str) -> None:
                                 axis=-1).mean() * 1e3
         log(f"[path] person {pid}: {e - s} frames, schema ok, joints3d spread "
             f"over frames {spread:.3f} mm")
+
+
+def hmr2_demo(vid: str, trackfile: str, workdir: str) -> tuple[int, float]:
+    """`demo --arch hmr2 --tracking_path` (HMR 2.0 at its published widths,
+    random weights) on phase 3's clip: the persons' schema, and every
+    linear of its 32 ViT blocks on the op, 4 x 32 launches a forward and
+    one forward a track, each call held against the plain version on its
+    own inputs (VIT_ATOL). Returns the launches and the largest error."""
+    import numpy as np
+
+    from gaitlab_torch.cli import demo
+    from gaitlab_torch.ops import vit_linear as vl
+
+    errs = []
+    launch = vl._launch
+
+    def spy(x, weight, bias):
+        out = launch(x, weight, bias)
+        want = vl.vit_linear_plain(x, weight, bias)
+        e = (out - want).abs().max().item()
+        if not e <= VIT_ATOL * max(1.0, want.abs().max().item()):
+            raise AssertionError(f"vit_linear at {tuple(x.shape)} x "
+                                 f"{tuple(weight.shape)}: {e:.3e} from its "
+                                 f"plain version")
+        errs.append(e)
+        return out
+
+    out_dir = osp.join(workdir, "out_hmr2")
+    vl.vit_linear_f32.launches = 0
+    vl._launch = spy
+    try:
+        t0 = time.perf_counter()
+        demo.main(demo.build_parser().parse_args(
+            ["--vid_file", vid, "--tracking_path", trackfile, "--arch",
+             "hmr2", "--output_folder", out_dir, "--save_vid"]))
+        wall = time.perf_counter() - t0
+    finally:
+        vl._launch = launch
+    launches = vl.vit_linear_f32.launches
+    saved = demo.load_pickle(osp.join(out_dir, "walk_mp4", "grnet.pkl"))
+    for pid, (s, e) in enumerate(TRACKS):
+        if not np.array_equal(saved[pid]["frame_ids"], np.arange(s, e)):
+            raise AssertionError(f"hmr2 person {pid}: wrong frame ids")
+        check_person(pid, saved[pid])
+    log(f"[path] demo --arch hmr2 --tracking_path: {wall:.2f} s, "
+        f"{VIT} launches {launches} over {len(TRACKS)} forwards, each held "
+        f"against the plain version: max_abs_err {max(errs):.3e}")
+    if launches != 4 * VIT_BLOCKS * len(TRACKS) or len(errs) != launches:
+        raise AssertionError(f"demo --arch hmr2: {launches} {VIT} launches "
+                             f"({len(errs)} held), want "
+                             f"{4 * VIT_BLOCKS} a forward")
+    vl.vit_linear_f32.launches = 0  # every later path is GRNet's
+    return launches, max(errs)
 
 
 def model_loop(model, crops) -> None:
@@ -4216,10 +4363,13 @@ def main() -> int:
         rows = [check_keypoint_attention(gen, flush),
                 check_blendshapes(gen, flush),
                 check_keypoint_attention_bf16(gen, flush),
-                check_upsample_bilinear(gen, flush)]
+                check_upsample_bilinear(gen, flush),
+                check_vit_linear(gen, flush)]
     del flush
     for r in rows:
-        log(f"[kernels] {r['name']} at B={LOOP_BATCH}: {r['ms']:.4f} ms, "
+        at = (f"bucket {VIT_BUCKETS[-1]} (its four shapes)" if r["name"] == VIT
+              else f"B={LOOP_BATCH}")
+        log(f"[kernels] {r['name']} at {at}: {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
@@ -4227,6 +4377,7 @@ def main() -> int:
         vid, trackfile = make_clip(workdir)
         model, crops, ckpt = calibrated_model(vid, trackfile, workdir)
         run_demo(vid, trackfile, ckpt, workdir)
+        hmr2_launches, hmr2_err = hmr2_demo(vid, trackfile, workdir)
         model_loop(model, crops)
         profile_loop(model, crops)
         card_vs_cpu(model, crops)
@@ -4268,6 +4419,18 @@ def main() -> int:
             r["max_abs_err"] = max(r["max_abs_err"],
                                    prec_errs["keypoint_attention"],
                                    bb_errs["keypoint_attention"])
+            r["fwd_bwd_ms"] = None
+        elif name == VIT:
+            # only HMR 2.0 runs it: its count, reset after the hmr2 demo,
+            # must still be 0 after every GRNet path
+            from gaitlab_torch.ops.vit_linear import vit_linear_f32
+
+            if vit_linear_f32.launches:
+                raise AssertionError(f"{vit_linear_f32.launches} {VIT} "
+                                     f"launches on GRNet's paths")
+            r["launches_by_path"] = {"hmr2_demo": hmr2_launches,
+                                     **{p: 0 for p in paths}}
+            r["max_abs_err"] = max(r["max_abs_err"], hmr2_err)
             r["fwd_bwd_ms"] = None
         else:
             r["launches_by_path"] = {p: n[name] for p, n in paths.items()}

@@ -84,6 +84,12 @@ def precision_scope(mode: str):
         yield
 
 
+def full_float32() -> bool:
+    """Whether this thread is in a segment that computes its products in
+    full float32: no split mode (or "float32") and the TF32 gate held off."""
+    return _CONV_MODE.get() in (None, "float32") and held_math_mode() is False
+
+
 def bf16_hi(a: torch.Tensor) -> torch.Tensor:
     """The bf16-representable high part of float32 values: the low 16
     mantissa bits masked off (truncation toward zero), bit for bit as

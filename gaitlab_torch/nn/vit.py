@@ -15,8 +15,8 @@ the tokens reshaped to (B, C, Hp, Wp), which its head flattens back; the
 port hands the (B, Hp*Wp, C) tokens on as they are.
 
 Every product follows the thread's precision mode (nn/layers.py):
-`Conv2d` and `Linear` for the weights, `attention` for the two batched
-products of each head.
+`Conv2d` for the patch embedding, `BlockLinear` for the blocks' four
+linears, `attention` for the two batched products of each head.
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gaitlab_torch.nn.layers import Conv2d, Linear, matmul_passes
+from gaitlab_torch.nn.layers import (Conv2d, Linear, full_float32,
+                                     matmul_passes)
+from gaitlab_torch.ops.vit_linear import vit_linear_f32
 
 LN_EPS = 1e-6
 
@@ -41,6 +43,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor cores (3xTF32), so neither is plain float32."""
     logits = matmul_passes(q * scale, k.transpose(-2, -1))
     return matmul_passes(logits.softmax(dim=-1), v)
+
+
+class BlockLinear(Linear):
+    """`Linear` of a block (qkv, proj, fc1, fc2): a float32 product on the
+    card in a segment at full float32 runs on the op gaitlab::vit_linear_f32
+    (ops/vit_linear.py: three TF32 passes on the tensor cores, in place of
+    cuBLAS's FFMA SGEMM); every other mode, dtype and device is
+    `Linear`'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (x.is_cuda and x.dtype == self.weight.dtype == torch.float32
+                and full_float32()):
+            return vit_linear_f32(x, self.weight, self.bias)
+        return super().forward(x)
 
 
 class PatchEmbed(nn.Module):
@@ -62,8 +78,8 @@ class Attention(nn.Module):
         super().__init__()
         self.heads = heads
         self.scale = (width // heads) ** -0.5
-        self.qkv = Linear(width, 3 * width, bias=True)
-        self.proj = Linear(width, width)
+        self.qkv = BlockLinear(width, 3 * width, bias=True)
+        self.proj = BlockLinear(width, width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, c = x.shape
@@ -76,8 +92,8 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     def __init__(self, width: int, hidden: int):
         super().__init__()
-        self.fc1 = Linear(width, hidden)
-        self.fc2 = Linear(hidden, width)
+        self.fc1 = BlockLinear(width, hidden)
+        self.fc2 = BlockLinear(hidden, width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))

@@ -41,6 +41,7 @@ SIGNATURES = {
                                  _P)),
     "upsample_bilinear": ("gaitlab_upsample_bilinear",
                           (_P, _P, *(_I,) * 14, _P)),
+    "vit_linear": ("gaitlab_vit_linear", (_P, _P, _P, _P, _P, *(_I,) * 7, _P)),
 }
 
 _libs: dict = {}

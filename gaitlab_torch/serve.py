@@ -56,6 +56,7 @@ import torch.utils._pytree as pytree
 import gaitlab_torch.ops.blendshapes  # noqa: F401
 import gaitlab_torch.ops.keypoint_attention  # noqa: F401
 import gaitlab_torch.ops.upsample_bilinear  # noqa: F401
+import gaitlab_torch.ops.vit_linear  # noqa: F401
 from gaitlab_torch.body.smpl import SMPLParams
 from gaitlab_torch.device import math_mode, resolve_device, upload
 from gaitlab_torch.pipeline.runner import TRUNK_DTYPES, GRNetRunner, _pad_rows
