@@ -24,6 +24,7 @@ from gaitlab_torch import api as pt_api
 from gaitlab_torch.pipeline.runner import GRNetRunner as PtRunner
 from test_torch_gait import gait_pair
 from test_torch_models import assert_close
+from torch_threads import torch_threads  # noqa: F401
 
 N_FRAMES = 44
 RESULT_KEYS = ("pred_cam", "orig_cam", "verts", "pose", "betas", "joints3d",

@@ -32,6 +32,7 @@ from gaitlab_torch.ops import keypoint_attention as pt_attention
 from gaitlab_torch.ops.keypoint_attention import (keypoint_attention_fused,
                                                   keypoint_attention_plain,
                                                   launch_plan_bf16)
+from torch_threads import torch_threads  # noqa: F401
 
 H100_SMS = 132
 LOG2E = np.float32(1.4426950408889634)

@@ -61,6 +61,7 @@ from gaitlab_torch.weights.convert import state_dict_from_flax
 from test_torch_models import (TINY, _randomise_stats, assert_close,
                                assert_outputs_close, port_from_jax,
                                tiny_pair)
+from torch_threads import torch_threads  # noqa: F401
 
 W, IMG = TINY["backbone_width"], 64
 DEPTH = dict(modules=TINY["backbone_modules"], blocks=TINY["backbone_blocks"])
@@ -87,17 +88,6 @@ def bf16_close(got, want, what):
     err = np.abs(np.asarray(got, np.float64) - want).max()
     limit = BF16_BOUND * max(1.0, np.abs(want).max())
     assert err <= limit, f"{what}: max abs err {err:.3e} > {limit:.3e}"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The small shapes here gain nothing from torch's intra-op threads,
-    and beside other test workers on the same cores those threads mostly
-    wait for each other; the setting is restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,7 @@ from gaitlab_torch.pipeline import medoids as pt_medoids
 from gaitlab_torch.pipeline import openpose as pt_openpose
 from gaitlab_torch.pipeline.runner import GRNetRunner as PtRunner
 from test_torch_models import assert_close, tiny_pair
+from torch_threads import torch_threads  # noqa: F401
 
 CROP = 64
 BUCKETS = "16"

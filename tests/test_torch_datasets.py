@@ -31,6 +31,7 @@ from gaitlab_torch.weights import torch_import as pt_ti
 from gaitlab_torch.weights.convert import state_dict_from_flax
 from test_torch_models import TINY, tiny_pair
 from test_torch_pipeline import crops_close
+from torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

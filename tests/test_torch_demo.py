@@ -29,6 +29,7 @@ from gaitlab_torch.pipeline import medoids as pt_medoids
 from gaitlab_torch.pipeline import openpose as pt_openpose
 from gaitlab_torch.pipeline.runner import GRNetRunner as PtRunner
 from test_torch_models import assert_close, tiny_pair
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_FRAMES = 30
@@ -65,6 +66,20 @@ def clip(tmp_path_factory):
     return d, vid, trackfile
 
 
+@pytest.fixture(scope="module")
+def models():
+    """gaitlab's demo model and the port's, with the same weights."""
+    module, variables, port = tiny_pair(seed=5)
+    return JaxGRNet(module=module, variables=variables,
+                    smpl=jax_smpl.synthetic_smpl_params()), port
+
+
+@pytest.fixture(scope="module")
+def port6():
+    """The port's model of the tests that run the port's demo alone."""
+    return tiny_pair(seed=6)[2]
+
+
 def _args(parser, vid, trackfile, out, *extra):
     return parser.parse_args(
         ["--vid_file", vid, "--tracking_path", trackfile, "--output_folder",
@@ -72,11 +87,9 @@ def _args(parser, vid, trackfile, out, *extra):
 
 
 @pytest.mark.parametrize("joint_type", ["spin", "common"])
-def test_demo_pkl_matches_gaitlab(clip, monkeypatch, joint_type):
+def test_demo_pkl_matches_gaitlab(clip, models, monkeypatch, joint_type):
     d, vid, trackfile = clip
-    module, variables, port = tiny_pair(seed=5)
-    jax_model = JaxGRNet(module=module, variables=variables,
-                         smpl=jax_smpl.synthetic_smpl_params())
+    jax_model, port = models
     monkeypatch.setattr(jax_demo, "load_model", lambda args, cfg: jax_model)
     monkeypatch.setattr(pt_demo, "load_model", lambda args, cfg: port)
     # 30 frames: one forward at bucket 16, then 14 frames padded to 16
@@ -111,10 +124,9 @@ def test_demo_pkl_matches_gaitlab(clip, monkeypatch, joint_type):
                  what="pose")
 
 
-def test_demo_names_repeat_pkls_like_gaitlab(clip, monkeypatch):
+def test_demo_names_repeat_pkls_like_gaitlab(clip, port6, monkeypatch):
     d, vid, trackfile = clip
-    port = tiny_pair(seed=6)[2]
-    monkeypatch.setattr(pt_demo, "load_model", lambda args, cfg: port)
+    monkeypatch.setattr(pt_demo, "load_model", lambda args, cfg: port6)
     monkeypatch.setenv("GAITLAB_BUCKETS", "32")
     out = str(d / "repeat")
     for _ in range(2):
@@ -147,10 +159,9 @@ class _FirstTrack(Exception):
     ["--save_vid", "--precision", "default"],
     ["--mesh_render", "--precision", "default"],
     ["--parallel", "dp", "--precision", "high"]])
-def test_unported_paths_raise(clip, monkeypatch, flags):
+def test_unported_paths_raise(clip, port6, monkeypatch, flags):
     d, vid, trackfile = clip
-    port = tiny_pair(seed=6)[2]
-    monkeypatch.setattr(pt_demo, "load_model", lambda args, cfg: port)
+    monkeypatch.setattr(pt_demo, "load_model", lambda args, cfg: port6)
     monkeypatch.setenv("GAITLAB_BUCKETS", "32")
     seen = []
     real = PtRunner.run_track

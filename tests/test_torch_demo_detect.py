@@ -24,6 +24,7 @@ from gaitlab.core import geometry as jax_geometry
 from gaitlab.nn.grnet import GRNet as JaxGRNet
 from gaitlab_torch.cli import demo as pt_demo
 from test_torch_models import assert_close, tiny_pair
+from torch_threads import torch_threads  # noqa: F401
 
 N_FRAMES = 32
 PKL_KEYS = ("pred_cam", "orig_cam", "verts", "pose", "betas", "joints3d",
@@ -71,6 +72,24 @@ def run_demo(mod, model, vid, out, monkeypatch, *extra):
     return joblib.load(os.path.join(out, "detect_walk_mp4", "grnet.pkl"))
 
 
+@pytest.fixture(scope="module")
+def port_runs(clip, models):
+    """The port's demo on the clip, run once for each set of flags: the
+    parity cases and the stream check read the same runs."""
+    d, vid = clip
+    runs = {}
+
+    def run(*extra):
+        if extra not in runs:
+            tag = "_".join(x.strip("-") for x in extra) or "plain"
+            with pytest.MonkeyPatch.context() as mp:
+                runs[extra] = run_demo(pt_demo, models[1], vid,
+                                       str(d / f"pt_{tag}"), mp, *extra)
+        return runs[extra]
+
+    return run
+
+
 def rot(aa):
     return np.asarray(jax_geometry.axis_angle_to_rotmat(aa.reshape(-1, 3)))
 
@@ -78,13 +97,12 @@ def rot(aa):
 @pytest.mark.parametrize("extra", [(), ("--smooth",), ("--stream",),
                                    ("--stream", "--smooth")],
                          ids=["folder", "smooth", "stream", "stream_smooth"])
-def test_demo_from_video_matches_gaitlab(clip, models, monkeypatch, extra):
+def test_demo_from_video_matches_gaitlab(clip, models, port_runs,
+                                        monkeypatch, extra):
     d, vid = clip
-    jax_model, port = models
     tag = "_".join(x.strip("-") for x in extra) or "plain"
-    got = run_demo(pt_demo, port, vid, str(d / f"pt_{tag}"), monkeypatch,
-                   *extra)
-    want = run_demo(jax_demo, jax_model, vid, str(d / f"jax_{tag}"),
+    got = port_runs(*extra)
+    want = run_demo(jax_demo, models[0], vid, str(d / f"jax_{tag}"),
                     monkeypatch, *extra)
     assert list(got) == list(want) == [0, 1]
     for pid in want:
@@ -103,15 +121,12 @@ def test_demo_from_video_matches_gaitlab(clip, models, monkeypatch, extra):
                      what=f"{pid} pose")
 
 
-def test_stream_gives_the_folder_run_s_persons(clip, models, monkeypatch):
+def test_stream_gives_the_folder_run_s_persons(port_runs):
     """--stream fits the background on the clip's head and decodes from
     the video; on this clip it finds the folder run's persons, frames and
     boxes, and --smooth changes the pose but no track."""
-    d, vid = clip
-    port = models[1]
-    folder = run_demo(pt_demo, port, vid, str(d / "cmp_folder"), monkeypatch)
-    stream = run_demo(pt_demo, port, vid, str(d / "cmp_stream"), monkeypatch,
-                      "--stream", "--smooth")
+    folder = port_runs()
+    stream = port_runs("--stream", "--smooth")
     assert list(folder) == list(stream) == [0, 1]
     for pid in folder:
         np.testing.assert_array_equal(stream[pid]["frame_ids"],

@@ -27,6 +27,7 @@ from gaitlab.core import geometry as jax_geometry
 from gaitlab.nn.grnet import GRNet as JaxGRNet
 from gaitlab_torch.cli import demo as pt_demo
 from test_torch_models import assert_close, tiny_pair
+from torch_threads import torch_threads  # noqa: F401
 
 N_FRAMES = 30
 PKL_KEYS = ("pred_cam", "orig_cam", "verts", "pose", "betas", "joints3d",

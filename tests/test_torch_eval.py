@@ -14,6 +14,7 @@ import torch
 from gaitlab import eval as jax_eval
 from gaitlab_torch import eval as pt_eval
 from test_torch_models import assert_close
+from torch_threads import torch_threads  # noqa: F401
 
 
 def rotation(rng) -> np.ndarray:

@@ -26,6 +26,7 @@ from gaitlab_torch.body import smpl as pt_smpl
 from gaitlab_torch.cli import fbx_output as pt_cli
 from gaitlab_torch.render import export as pt_export
 from gaitlab_torch.render import fbx as pt_fbx
+from torch_threads import torch_threads  # noqa: F401
 
 ATOL = 1e-5
 T = 12

@@ -19,6 +19,7 @@ from gaitlab.core import filters as jax_filters
 from gaitlab.pipeline import smoothing as jax_smoothing
 from gaitlab_torch.core import filters as pt_filters
 from gaitlab_torch.pipeline import smoothing as pt_smoothing
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = 1e-6
 SMPL_RTOL, SMPL_ATOL = 2e-4, 2e-5

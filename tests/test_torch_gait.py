@@ -40,6 +40,7 @@ from gaitlab_torch.weights.convert import (gait_state_dict_from_flax,
                                            state_dict_from_flax)
 from test_torch_models import (TINY, assert_close, assert_outputs_close,
                                tiny_pair)
+from torch_threads import torch_threads  # noqa: F401
 
 GAIT = dict(use_gait_feat=True, featcorr_h_size=64)
 

@@ -20,6 +20,7 @@ from gaitlab.gait import features as jax_features
 from gaitlab_torch.gait import classify as pt_classify
 from gaitlab_torch.gait import features as pt_features
 from test_gait_features import synthetic_walk
+from torch_threads import torch_threads  # noqa: F401
 
 
 def rotate(J: np.ndarray, deg: float) -> np.ndarray:

@@ -13,6 +13,7 @@ import torch
 
 from gaitlab.core import geometry as jg
 from gaitlab_torch.core import geometry as pg
+from torch_threads import torch_threads  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

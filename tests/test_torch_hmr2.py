@@ -32,6 +32,7 @@ from gaitlab_torch.core import geometry
 from gaitlab_torch.nn import hmr2
 from gaitlab_torch.nn.grnet import GRNet, GRNetCore
 from gaitlab_torch.pipeline.runner import GRNetRunner
+from torch_threads import torch_threads  # noqa: F401
 
 GAP = 1e-5
 CROP = 64

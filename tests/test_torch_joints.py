@@ -6,6 +6,7 @@ import pytest
 
 from gaitlab.body import joints as jax_joints
 from gaitlab_torch.body import joints as pt_joints
+from torch_threads import torch_threads  # noqa: F401
 
 FORMATS = ["spin", "spin2", "kinectv2", "common", "smpl", "coco"]
 

@@ -36,6 +36,7 @@ from gaitlab_torch.ops.keypoint_attention import (keypoint_attention_fused,
 from gaitlab_torch.ops import upsample_bilinear as pt_upsample
 from gaitlab_torch.ops.upsample_bilinear import (upsample_bilinear_ac,
                                                  upsample_bilinear_plain)
+from torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.fixture

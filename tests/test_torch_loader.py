@@ -21,6 +21,7 @@ from gaitlab_torch.nn.grnet import GRNet as PtGRNet
 from gaitlab_torch.pipeline import loader
 from gaitlab_torch.pipeline.runner import GRNetRunner
 from test_torch_models import TINY
+from torch_threads import torch_threads  # noqa: F401
 
 N, H, W = 10, 48, 64
 

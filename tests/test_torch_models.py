@@ -35,6 +35,7 @@ from gaitlab_torch.core import geometry as pt_geometry
 from gaitlab_torch.nn.grnet import GRNet as PtGRNet
 from gaitlab_torch.weights.convert import state_dict_from_flax
 from gaitlab_torch.weights.torch_import import load_grnet_ckpt
+from torch_threads import torch_threads  # noqa: F401
 
 TINY = dict(backbone_width=8, num_input_features=120,
             num_features_pare=32, num_features_smpl=16,

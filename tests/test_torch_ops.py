@@ -22,6 +22,7 @@ from gaitlab_torch.ops.blendshapes import blendshapes, blendshapes_plain
 from gaitlab_torch.ops.keypoint_attention import (keypoint_attention_fused,
                                                   keypoint_attention_plain)
 from test_torch_kernels import attention_inputs, blendshape_inputs
+from torch_threads import torch_threads  # noqa: F401
 
 
 def close(got, want):

@@ -36,6 +36,7 @@ from gaitlab_torch.pipeline import runner as pt_runner
 from gaitlab_torch.weights.convert import _LEAF, torch_module_path
 from test_torch_gait import gait_pair
 from test_torch_models import assert_close, tiny_pair
+from torch_threads import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 TOKEN_MAJOR = ("head.shape_mlp.weight", "head.cam_mlp.weight")

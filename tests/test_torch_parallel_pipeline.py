@@ -42,6 +42,7 @@ from test_torch_gait import gait_pair
 from test_torch_models import (assert_close, assert_outputs_close,
                                jax_forward, tiny_pair)
 from test_torch_parallel import _frames, assert_tracks_close
+from torch_threads import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 
@@ -196,25 +197,40 @@ def parallel_clip(clip, tmp_path_factory):  # noqa: F811
     return d, vid, clip[2]
 
 
+def demo_pkl(parallel_clip, name, *extra):
+    """The port's demo on the clip into the folder `name`: its pkl."""
+    d, vid, trackfile = parallel_clip
+    out = str(d / name)
+    pt_demo.main(_args(pt_demo.build_parser(), vid, trackfile, out, *extra))
+    return joblib.load(os.path.join(out, "torch_parallel_walk_mp4",
+                                    "grnet.pkl"))
+
+
+@pytest.fixture(scope="module")
+def demo_plain(parallel_clip):
+    """The demo tests' model and its demo without --parallel, run once for
+    both cases."""
+    port = tiny_pair(seed=5)[2]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pt_demo, "load_model", lambda args, cfg: port)
+        mp.setenv("GAITLAB_BUCKETS", "16")
+        return port, demo_pkl(parallel_clip, "plain")
+
+
 @pytest.mark.parametrize("parallel", ["dp", "pp"])
-def test_demo_parallel_on_the_cpu(parallel_clip, monkeypatch, parallel):
+def test_demo_parallel_on_the_cpu(parallel_clip, demo_plain, monkeypatch,
+                                  parallel):
     """`demo --cpu_only --parallel dp|pp`: the mesh is the CPU alone, which
     --parallel dp runs on and --parallel pp refuses (gaitlab's ValueError:
     it needs two devices); over a list that names the CPU twice, both
     write the pkl of the demo without --parallel."""
-    d, vid, trackfile = parallel_clip
-    port = tiny_pair(seed=5)[2]
+    port, want = demo_plain
     monkeypatch.setattr(pt_demo, "load_model", lambda args, cfg: port)
     monkeypatch.setenv("GAITLAB_BUCKETS", "16")
 
     def run(name, *extra):
-        out = str(d / f"{parallel}_{name}")
-        pt_demo.main(_args(pt_demo.build_parser(), vid, trackfile, out,
-                           *extra))
-        return joblib.load(os.path.join(out, "torch_parallel_walk_mp4",
-                                        "grnet.pkl"))
+        return demo_pkl(parallel_clip, f"{parallel}_{name}", *extra)
 
-    want = run("plain")
     if parallel == "pp":
         with pytest.raises(ValueError, match="need >= 2 devices"):
             run("one", "--parallel", "pp")

@@ -34,6 +34,7 @@ from gaitlab_torch.pipeline import runner as pt_runner
 from gaitlab_torch.pipeline import tracks as pt_tracks
 from gaitlab_torch.pipeline import video as pt_video
 from test_torch_models import assert_close, tiny_pair
+from torch_threads import torch_threads  # noqa: F401
 
 ONE_COUNT = 1.0 / (255 * 0.224)  # one uint8 step after normalisation
 

@@ -45,6 +45,7 @@ from gaitlab_torch.nn.grnet import GRNet as PtGRNet
 from gaitlab_torch.ops import keypoint_attention as pt_ka
 from gaitlab_torch.pipeline.runner import GRNetRunner as PtRunner
 from test_torch_models import TINY, assert_close, tiny_pair
+from torch_threads import torch_threads  # noqa: F401
 
 CROP = 64
 PER_FRAME = ("theta", "verts", "kp_2d", "kp_3d")

@@ -26,6 +26,7 @@ from gaitlab_torch.nn.grnet import GRNet as PtGRNet
 from gaitlab_torch.parallel import mesh as pt_mesh
 from gaitlab_torch.pipeline.runner import GRNetRunner as PtRunner
 from test_torch_models import TINY, assert_close
+from torch_threads import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 CROP = 64

@@ -35,6 +35,7 @@ from gaitlab_torch.render import overlay as pt_overlay
 from gaitlab_torch.render import raster as pt_raster
 from gaitlab_torch.render import raster_torch
 from gaitlab_torch.render import vis as pt_vis
+from torch_threads import torch_threads  # noqa: F401
 
 ZBUF_ATOL = 1e-6
 MIN_PIXEL_AGREEMENT = 0.999

@@ -20,6 +20,7 @@ from gaitlab.pipeline.runner import GRNetRunner as JaxRunner
 from gaitlab_torch.pipeline.runner import GRNetRunner as PtRunner
 from test_torch_gait import gait_pair
 from test_torch_models import assert_close, assert_outputs_close
+from torch_threads import torch_threads  # noqa: F401
 
 RUN_KEYS = ("pred_cam", "pose", "betas", "verts", "joints3d", "joints2d")
 

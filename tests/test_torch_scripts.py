@@ -35,6 +35,7 @@ from gaitlab_torch.nn import gait as pg
 from gaitlab_torch.nn.grnet import GRNet as PtGRNet
 from test_torch_gait import flax_init, port_module
 from test_torch_models import TINY, jax_forward, tiny_pair
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SCRIPTS = osp.join(REPO, "scripts")

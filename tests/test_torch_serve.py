@@ -31,6 +31,7 @@ from gaitlab.pipeline.runner import GRNetRunner as JaxRunner
 from gaitlab_torch import serve
 from gaitlab_torch.pipeline.runner import GRNetRunner
 from test_torch_models import assert_close, assert_outputs_close, tiny_pair
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CROP = 64

@@ -35,6 +35,7 @@ from test_torch_gait import flax_init, gait_inputs, gait_pair, port_module
 from test_torch_models import assert_close
 from test_torch_serve import CROP, PER_FRAME, edge_pad, outputs_close, \
     u8_crops
+from torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

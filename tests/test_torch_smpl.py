@@ -24,6 +24,7 @@ from gaitlab.body import smpl as jax_smpl
 from gaitlab.core import geometry as jax_geometry
 from gaitlab_torch.body import joints as pt_joints
 from gaitlab_torch.body import smpl as pt_smpl
+from torch_threads import torch_threads  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 MODES = ("smpl24", "smplx45", "spin2", "spin")

@@ -29,6 +29,7 @@ from gaitlab_torch.render import vis as pt_vis
 from gaitlab_torch.weights.convert import hmr_state_dict_from_flax
 from test_torch_models import _randomise_stats, assert_close, \
     assert_outputs_close
+from torch_threads import torch_threads  # noqa: F401
 
 CROP = 64
 

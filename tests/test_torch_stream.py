@@ -36,6 +36,7 @@ from gaitlab_torch.pipeline import stream as pt_stream
 from gaitlab_torch.pipeline.runner import GRNetRunner as PtRunner
 from test_torch_gait import gait_pair
 from test_torch_models import assert_close, tiny_pair
+from torch_threads import torch_threads  # noqa: F401
 
 N_FRAMES = 40
 PKL_KEYS = ("pred_cam", "orig_cam", "verts", "pose", "betas", "joints3d",

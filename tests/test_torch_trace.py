@@ -28,6 +28,7 @@ from gaitlab_torch import serve, utils
 from gaitlab_torch.nn.grnet import GRNet
 from gaitlab_torch.pipeline.runner import GRNetRunner
 from test_torch_models import TINY
+from torch_threads import torch_threads  # noqa: F401
 
 CROP = 64
 N = 11  # frames of a track: forwards of 8 and 3 (bucket 4) real frames

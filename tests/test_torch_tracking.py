@@ -26,6 +26,7 @@ from gaitlab_torch.pipeline import detect as pt_detect
 from gaitlab_torch.pipeline import tracks as pt_tracks
 from gaitlab_torch.pipeline import video as pt_video
 from gaitlab_torch.pipeline.runner import GRNetRunner
+from torch_threads import torch_threads  # noqa: F401
 
 
 def walkers(n=40, occluded=(), blank=(), seed=0):

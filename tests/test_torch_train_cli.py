@@ -20,6 +20,7 @@ from gaitlab_torch.cli import train
 from gaitlab_torch.nn.grnet import GRNet as PtGRNet
 from test_torch_models import TINY
 from test_train_cli import _make_shards
+from torch_threads import torch_threads  # noqa: F401
 
 # the head parameter whose exact gradient is 0 (a shift of all of one
 # part's logits leaves its softmax unchanged): it moves on rounding noise

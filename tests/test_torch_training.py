@@ -32,6 +32,7 @@ from gaitlab_torch.ops import blendshapes as b2
 from gaitlab_torch.ops import keypoint_attention as b1
 from gaitlab_torch.weights.convert import state_dict_from_flax
 from test_torch_models import assert_close, port_from_jax, tiny_pair
+from torch_threads import torch_threads  # noqa: F401
 
 LR = 1e-3
 MOMENTUM = 0.9

@@ -31,6 +31,7 @@ from gaitlab_torch.weights.convert import state_dict_from_flax
 from test_torch_gait import flax_init, port_module
 from test_torch_models import assert_close, port_from_jax, tiny_pair
 from test_torch_training import LR, MOMENTUM, grads_close
+from torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

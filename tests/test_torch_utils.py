@@ -2,6 +2,7 @@
 AverageMeter, StageTimer.fps, profile_trace), config.merge_from_other_cfg
 and weights/cache.py (file_hash, memo_tree, convert_cached), all on the
 host. Exact equality throughout: the same arithmetic on the same inputs.
+Last, the port tests' CPU-thread rule (torch_threads) is in force.
 """
 
 import glob
@@ -18,6 +19,7 @@ from gaitlab.weights import cache as jax_cache
 from gaitlab_torch import config as pt_config
 from gaitlab_torch import utils as pt_utils
 from gaitlab_torch.weights import cache as pt_cache
+from torch_threads import torch_threads  # noqa: F401
 
 
 def test_average_meter_matches():
@@ -190,3 +192,23 @@ def test_cache_write_failure_is_best_effort(tmp_path, capsys):
     tree = pt_cache.memo_tree("k", _state, cache_dir=str(blocker))
     _assert_same(tree, _state())
     assert "cache write failed" in capsys.readouterr().out
+
+
+def test_the_thread_rule_is_in_force():
+    """torch_threads gives this worker its share of the cores, torch and
+    child interpreters alike, and every port test file takes it."""
+    cores = len(os.sched_getaffinity(0))
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    n = max(1, cores // workers)
+    assert torch.get_num_threads() == n
+    assert os.environ["OMP_NUM_THREADS"] == str(n)
+    here = os.path.dirname(os.path.abspath(__file__))
+    files = sorted(glob.glob(os.path.join(here, "test_torch_*.py")))
+    assert len(files) > 1
+    rule = "from torch_threads import torch_threads  # noqa: F401"
+    missing = []
+    for path in files:
+        with open(path) as f:
+            if rule not in f.read().splitlines():
+                missing.append(os.path.basename(path))
+    assert not missing, f"without the thread rule: {missing}"

@@ -34,6 +34,7 @@ from gaitlab_torch.nn.hmr2 import HMR2Core
 from gaitlab_torch.nn.layers import Linear, precision_scope
 from gaitlab_torch.ops import _build
 from gaitlab_torch.ops import vit_linear as vl
+from torch_threads import torch_threads  # noqa: F401
 
 H100_SMS = 132
 # the four products of a ViT-H block: (N, K)

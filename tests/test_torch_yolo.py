@@ -30,6 +30,7 @@ from gaitlab_torch.nn import yolo as pt_yolo
 from gaitlab_torch.pipeline import detect as pt_detect
 from gaitlab_torch.pipeline import fetch as pt_fetch
 from gaitlab_torch.weights.convert import yolo_state_dict_from_flax
+from torch_threads import torch_threads  # noqa: F401
 
 RTOL = 1e-4
 
